@@ -1,18 +1,18 @@
 """Observations/s scaling harness (the north-star scaling metric).
 
-Measures the marginal LM-iteration time (bench.py methodology: fixed-work
-runs at N1/N2 iterations, early stop disabled) at increasing mesh sizes and
-reports observations/s per size.
+Measures the marginal LM-iteration time (fixed-work runs at N1/N2
+iterations, early stop disabled) at increasing mesh sizes and reports
+observations/s per size.
 
 Interpretation depends on the device fleet:
-  - real multi-chip mesh (TPU pod slice): `efficiency` = t1 / (N * tN) is
-    true strong-scaling efficiency (north star: >=80% at 2 hosts);
+  - real devices (several GPUs): `efficiency` = t1 / (N * tN) is true
+    strong-scaling efficiency (north star: >=80% at 2 hosts);
   - virtual CPU mesh (xla_force_host_platform_device_count, devices share
     the physical cores): wall-clock cannot drop, so the meaningful number
     is `overhead_vs_1dev` = tN / t1 — the cost of the sharded formulation
     (collectives, padding, replicated Schur solve). Ideal = 1.0.
 
-Writes SCALING.json next to this script (committed as the scaling report).
+Writes the report to --out (default SCALING.json at the repo root).
 
     python benchmarks/scaling.py [--dataset trafalgar21] [--sizes 1 2 4 8]
                                  [--dtype f32|f64] [--schur auto]

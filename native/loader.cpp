@@ -4,7 +4,7 @@
 // (PSBA/readparams.cpp): parses the SBA points text format
 //   X Y Z  nframes  (frame u v [cov])*
 // in a single pass with manual float scanning. Problem setup is the one
-// host-bound stage of the TPU pipeline; this parser is ~20x faster than
+// host-bound stage of the pipeline; this parser is ~20x faster than
 // the pure-Python reader on BAL-scale points files.
 //
 // Exposed via a C ABI consumed by ctypes (psba_tpu/io/native.py):

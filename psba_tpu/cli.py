@@ -20,7 +20,7 @@ import sys
 def build_parser():
     p = argparse.ArgumentParser(
         prog="psba_tpu",
-        description="TPU-native parallel sparse bundle adjustment",
+        description="parallel sparse bundle adjustment on JAX/XLA",
     )
     p.add_argument("--cams", help="camera text file")
     p.add_argument("--pts", help="points text file (omit with --synth-pts)")
@@ -54,12 +54,6 @@ def build_parser():
                         "(default: additive unless the measured Hessian "
                         "diagonal range would erase the smallest "
                         "diagonal in the working precision)")
-    p.add_argument("--s-precision", choices=["highest", "high"],
-                   default="highest",
-                   help="MXU precision of the dense3 Schur matmuls: "
-                        "highest = 6-pass bf16 (f32 fidelity, parity "
-                        "default); high = 3-pass (~2x faster S assembly "
-                        "at BAL camera counts, ~2^-21 product error)")
     p.add_argument("--mesh", type=int, default=1,
                    help="shard over N devices (observation axis)")
     p.add_argument("--out-cams", help="write optimized cameras (varK format)")
@@ -78,8 +72,10 @@ def main(argv=None):
 
     import jax
 
+    from psba_tpu.utils.compile_cache import enable_compile_cache
     from psba_tpu.utils.debug import env_nan_checks
 
+    enable_compile_cache()
     env_nan_checks()  # PSBA_DEBUG_NANS=1 enables jit NaN tripwires
     # x64 stays enabled even for --f32: the fast path casts explicitly and
     # the --polish refinement needs real float64
@@ -118,7 +114,6 @@ def main(argv=None):
             else 5
         ),
         damping=args.damping,
-        s_precision=args.s_precision,
         record_history=args.verbose,
     )
     dtype = jnp.float32 if args.f32 else None

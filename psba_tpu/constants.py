@@ -38,16 +38,17 @@ FLAG_NAMES = {
     ITER_PASS: "PASS",
 }
 
-# Dense-Schur dispatch threshold: the blk_idx-gather formulation (see
-# psba_tpu.core.schur.schur_S_dense) materializes two [6C, 3P] stacked
-# block tensors (144 bytes per (cam, point) cell in f32); above this many
-# C*P cells the covisibility pair list path is used instead. Measured
-# (SCHUR_COMPARE.json, TPU v5e): dense beats the pair-list encoding by
-# 10-15x on every BAL shape up to Rome-93 (C*P = 5.7M, 15.3 vs 112
-# ms/LM-iter), so the threshold is set by MEMORY, not speed: 32M cells
-# keeps ZW+ZY under ~9.2 GB of the chip's 16 GB HBM. Pairs remains the
-# correct encoding only beyond that.
-DENSE_SCHUR_MAX_ENTRIES = 32 * 1024 * 1024
+# Dense-Schur dispatch threshold, set by device memory: the blk_idx-gather
+# formulation (psba_tpu.core.schur.schur_S_dense) materializes [6C, 3P]
+# stacked block tensors; above this many C*P cells the covisibility pair
+# list path is used instead. Per (cam, point) cell in float64 (the
+# default precision): ZW and ZY at 18 * 8 = 144 bytes each, the gather's
+# [C*P, 18] staging copy before its transpose another 144, and the int32
+# blk_idx table 4 -> ~436 bytes. An 80 GB card gives a JAX process 75% of
+# its memory (60 GB) by default; keeping the dense factors to half of that
+# (30 GB) leaves the rest to the observation-axis arrays and XLA's
+# temporaries: 30e9 / 436 ~ 69M cells, rounded down to 2^26 = 67.1M.
+DENSE_SCHUR_MAX_ENTRIES = 64 * 1024 * 1024
 
 # Parameter-block dimensions (PSBA/CL_files/PSBA.cl:5-7; fixed by the camera
 # model: 3 local-rotation + 3 translation per camera, 3 per point, 2 per

@@ -1,6 +1,6 @@
 """Gill–Murray–Wright modified Cholesky (diagonal-perturbation extraction).
 
-TPU-native equivalent of the reference's modified-Cholesky pipeline
+Equivalent of the reference's modified-Cholesky pipeline
 (PSBA/cl_cholmod.cpp:25-202, CL_files/cholmod_blk.cl): when plain Cholesky
 of S fails at lambda=0, the TR solver runs a GMW factorization
 A + E = L D L^T with diagonal E >= 0 and bootstraps the regularizer as
@@ -13,8 +13,8 @@ Parameters delta / beta follow cl_cholmod.cpp:161-164:
   beta^2 = max(eta, xi / sqrt(n^2 - 1), 1e-15)
 
 The factorization is the textbook column-wise GMW recurrence as one
-`lax.fori_loop` over columns with full-matrix rank-1 updates (vectorized on
-the VPU) — the device-side-enqueue chain of the reference collapses into
+`lax.fori_loop` over columns with vectorized full-matrix rank-1 updates —
+the device-side-enqueue chain of the reference collapses into
 sequential loop iterations inside a single jitted computation (SURVEY.md §7
 hard part (c)). Off the hot path: only invoked on Cholesky failure."""
 
@@ -72,7 +72,7 @@ def gmw_perturbation_blocked(A, block: int = 16):
     *within* a panel: columns inside a [n, block] panel are factored with
     rank-1 updates restricted to the panel, and the trailing matrix
     receives the whole panel's accumulated update as ONE
-    [n, block] @ [block, n] MXU matmul. Sequential depth drops from n
+    [n, block] @ [block, n] matmul. Sequential depth drops from n
     rank-1 full-matrix updates to n panel-column steps on [n, block]
     slices + n/block matmuls — at n = 6C = 828 (Rome-93-class TR
     bootstrap) the full-matrix traffic falls from 828 O(n^2) updates to
@@ -119,10 +119,14 @@ def gmw_perturbation_blocked(A, block: int = 16):
         panel, E, P, dinv = jax.lax.fori_loop(
             0, block, col_body, (panel, E, P0, d0)
         )
-        # one MXU matmul applies the whole panel's update to the trailing
-        # matrix; columns <= k are already final and masked out
+        # one matmul applies the whole panel's update to the trailing
+        # matrix; columns <= k are already final and masked out. Pinned
+        # HIGHEST like every contraction on the solver path: an unpinned
+        # f32 product may run in TF32 on NVIDIA GPUs
         trail = (idx[None, :] >= k + block).astype(A.dtype)
-        upd = (P * dinv[None, :]) @ P.T            # [np_, np_]
+        upd = jnp.matmul(
+            P * dinv[None, :], P.T, precision=jax.lax.Precision.HIGHEST
+        )                                          # [np_, np_]
         c = c - upd * trail
         return c, E
 

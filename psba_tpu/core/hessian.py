@@ -1,6 +1,6 @@
 """Block Hessian assembly: U, V, W, g.
 
-TPU-native equivalents of kern_compute_U / _V / _Wblks / _g
+Equivalents of kern_compute_U / _V / _Wblks / _g
 (CL_files/compute_U.cl, compute_V.cl, compute_Wblks.cl, compute_g.cl).
 The reference launches one work-item per matrix element, each looping over
 the dense (point x cam) lookup table blk_idx; here each quantity is a
@@ -32,12 +32,10 @@ def assemble_blocks(A, B, ex, cam_idx, pt_idx, n_cams, n_pts, coeff=1.0,
                     valid=None):
     """Return (U [C,6,6], V [P,3,3], W [O,6,3], ga [C,6], gb [P,3]).
 
-    TPU formulation: one fused Gram product G_o = [A|B|ex]^T [A|B|ex] per
-    observation yields every block at once (U/V/W/g are sub-blocks of G),
-    and the camera-side reductions are one-hot matmuls — a [C,O]x[O,42]
-    contraction on the MXU instead of a scatter (2-3x faster on TPU than
-    jax.ops.segment_sum, which lowers to serialized scatter-adds). The
-    point-side reduction stays a sorted segment-sum.
+    One fused Gram product G_o = [A|B|ex]^T [A|B|ex] per observation
+    yields every block at once (U/V/W/g are sub-blocks of G); the
+    camera-side blocks are then reduced in one [O, 42] bucket sum, the
+    point-side ones in one sorted [O, 12] segment sum.
 
     `valid` [O] bool masks padded observations (distributed path)."""
     if valid is not None:
@@ -59,12 +57,11 @@ def assemble_blocks(A, B, ex, cam_idx, pt_idx, n_cams, n_pts, coeff=1.0,
     U = cam_red[:, :36].reshape(n_cams, 6, 6)
     ga = cam_red[:, 36:]
     # point side: V | gb packed as [O,12], sorted segment reduction
-    # (P is large — scatter wins on every backend)
     pt_pack = jnp.concatenate(
         [Gram[:, 6:9, 6:9].reshape(-1, 9), Gram[:, 6:9, 9]], axis=-1
     )                                                     # [O,12]
     pt_red = coeff * indexed_sum(
-        pt_pack, pt_idx, n_pts, indices_are_sorted=True, force="scatter"
+        pt_pack, pt_idx, n_pts, indices_are_sorted=True
     )
     V = pt_red[:, :9].reshape(n_pts, 3, 3)
     gb = pt_red[:, 9:]

@@ -1,6 +1,6 @@
 """Analytic reprojection Jacobians.
 
-TPU-native equivalent of kern_compute_jacobiQT (CL_files/compute_jacobiQT.cl:
+Equivalent of kern_compute_jacobiQT (CL_files/compute_jacobiQT.cl:
 7-141): per-observation blocks A_o = d(x̂)/d(cam) in R^{2x6} and
 B_o = d(x̂)/d(point) in R^{2x3}, where x̂ is the predicted projection and the
 camera parameters are [v (local rotation vector part), t].
@@ -65,10 +65,10 @@ def jacobians(K, q0, cams, pts, cam_idx, pt_idx, clamp: bool = False):
     t = cams[cam_idx, 3:6]
     X = pts[pt_idx]
 
-    # every einsum on this path pins Precision.HIGHEST: TPU XLA's
-    # default is bf16 MXU passes, which cost ~0.6% on the
-    # cancellation-heavy rotation-jacobian entries (measured vs f64;
-    # the Mosaic kernels sat at 2.5e-7 while this path drifted)
+    # every einsum on this path pins Precision.HIGHEST: an unpinned f32
+    # contraction may run in a reduced-precision format (TF32 on NVIDIA
+    # GPUs), which the cancellation-heavy rotation-jacobian entries
+    # cannot afford
     s = local_scalar(v, clamp=clamp)[..., None]          # [O,1]
     q = compose_local(v, q0g, clamp=clamp)               # [O,4]
     R0 = quat_to_matrix(q0g)                             # [O,3,3]
@@ -100,7 +100,7 @@ def jacobians(K, q0, cams, pts, cam_idx, pt_idx, clamp: bool = False):
 def jmultiply(A, B, x_cams, x_pts, cam_idx, pt_idx):
     """(J x)_o = A_o x_cam[j(o)] + B_o x_pt[i(o)]  -> [O, 2].
 
-    TPU-native equivalent of kern_compute_Jmultiply
+    Equivalent of kern_compute_Jmultiply
     (CL_files/compute_Jmultiply.cl): the reference materializes a dense
     (point, cam) layout with zeros at unobserved slots; since those entries
     contribute nothing to the dot products the TR solver takes, the per-

@@ -2,36 +2,18 @@
 
 The reference factors S with a self-enqueueing blocked Cholesky, explicitly
 inverts it (trigMat_inv / trigMat_mul) and multiplies S^{-1} ea
-(PSBA/cl_spdinv.cpp:18-204, CL_files/SPD_inv.cl). On TPU the numerically
+(PSBA/cl_spdinv.cpp:18-204, CL_files/SPD_inv.cl). Here the numerically
 superior factor-and-solve replaces the explicit inverse (intentional
 behavioral improvement, SURVEY.md §7 M3); failure is detected the same way
-(non-finite / non-positive pivots -> ret flag, SPD_inv.cl:66-75).
-
-Two implementations, dispatched at trace time:
-  - f32 on TPU with n <= MAX_N: the single-kernel Pallas factor+solve
-    (ops.cholesky_pallas) — the whole chain runs as fori_loops inside one
-    Mosaic kernel, eliminating the O(6C) per-op XLA sequencing overhead
-    that BENCH_r03 measured as the iteration's latency bound.
-  - otherwise: XLA Cholesky + cho_solve (the f64 / CPU / oversized path).
+(non-finite / non-positive pivots -> ret flag, SPD_inv.cl:66-75). XLA
+lowers the factorization to the platform's dense solver library
+(cuSOLVER potrf + triangular solves on NVIDIA GPUs).
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsl
-
-from psba_tpu.ops.cholesky_pallas import MAX_N, spd_solve_pallas
-
-
-def spd_solve_xla(S, b):
-    """XLA factor-and-solve. Returns (x, ok); see spd_solve."""
-    L = jnp.linalg.cholesky(S)
-    diag = jnp.diagonal(L)
-    ok = jnp.all(jnp.isfinite(diag) & (diag > 0.0))
-    x = jsl.cho_solve((L, True), b)
-    x = jnp.where(jnp.isfinite(x), x, 0.0)
-    return x, ok
 
 
 def spd_solve(S, b):
@@ -39,13 +21,13 @@ def spd_solve(S, b):
 
     Returns (x, ok). ok=False when the Cholesky factorization failed
     (matrix not positive definite), mirroring the reference's ret flag from
-    kern_cholesky (cl_spdinv.cpp:85-87). On failure x contains garbage and
-    must be discarded by the caller (the reference similarly leaves the
-    buffer partially factored)."""
-    if (
-        jax.default_backend() == "tpu"
-        and S.dtype == jnp.float32
-        and S.shape[0] <= MAX_N
-    ):
-        return spd_solve_pallas(S, b)
-    return spd_solve_xla(S, b)
+    kern_cholesky (cl_spdinv.cpp:85-87). On failure x is zeroed wherever
+    the factor produced non-finite values and must be discarded by the
+    caller (the reference similarly leaves the buffer partially
+    factored)."""
+    L = jnp.linalg.cholesky(S)
+    diag = jnp.diagonal(L)
+    ok = jnp.all(jnp.isfinite(diag) & (diag > 0.0))
+    x = jsl.cho_solve((L, True), b)
+    x = jnp.where(jnp.isfinite(x), x, 0.0)
+    return x, ok

@@ -1,9 +1,9 @@
 """Reprojection residuals.
 
-TPU-native equivalent of kern_compute_exQT (CL_files/compute_exQT.cl:18-71):
+Equivalent of kern_compute_exQT (CL_files/compute_exQT.cl:18-71):
 one fused, vectorized evaluation over the observation axis instead of a
 per-work-item kernel. XLA fuses the gather + quaternion algebra + projection
-into a single elementwise (VPU) loop over observations.
+into a single elementwise loop over observations.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Schur-complement reduction of the camera system.
 
-TPU-native equivalents of kern_compute_Vinv / _Yblks / _S / _ea / _eb /
+Equivalents of kern_compute_Vinv / _Yblks / _S / _ea / _eb /
 _dpb (CL_files/compute_Vinv.cl, compute_Yblks.cl, compute_S.cl,
 compute_ea.cl, compute_eb.cl, compute_dpb.cl):
 
@@ -14,8 +14,10 @@ compute_ea.cl, compute_eb.cl, compute_dpb.cl):
 The covisibility sum uses the static pair list from
 psba_tpu.problem.build_covis_pairs instead of the reference's
 O(C^2 P)-memory comm3DIdx table: a batched (6x3)@(3x6) product over pairs +
-one segment-sum over camera-pair buckets. Both map onto MXU-batched matmuls
-and a single reduction.
+one segment-sum over camera-pair buckets. Where the [C, P] block table fits
+(constants.DENSE_SCHUR_MAX_ENTRIES), the dense encoding instead stacks the W
+blocks once per linearization (stack_blocks) and turns S, ea and eb into
+dense matrix products (schur_S_dense).
 """
 
 from __future__ import annotations
@@ -96,10 +98,10 @@ def _block_scale(a, b, c, d, e, f):
     )
     m_safe = jnp.where(m > 0.0, m, 1.0)
     if m_safe.dtype == jnp.float32:
-        # 2^-floor(log2(m)) via exponent bits: measured ~0.1 ms/LM-iter
-        # cheaper than log2/exp2 on the planar [P] lanes (m_safe > 0, so
-        # the sign bit is clear). Subnormal m maps to exponent 0 ->
-        # inv_m = 2^127, which still lands the scaled block in range.
+        # 2^-floor(log2(m)) via exponent bits, exact and free of the
+        # transcendental log2/exp2 pair (m_safe > 0, so the sign bit is
+        # clear). Subnormal m maps to exponent 0 -> inv_m = 2^127, which
+        # still lands the scaled block in range.
         bits = jax.lax.bitcast_convert_type(m_safe, jnp.int32)
         eb = jax.lax.shift_right_logical(bits, jnp.int32(23))
         inv_bits = jax.lax.shift_left(
@@ -168,13 +170,12 @@ def inv3x3(V):
 
 
 def inv3x3_planar(V):
-    """inv3x3 in the planar [3, 3, P] layout (P in the TPU lane
-    dimension). Identical cofactor + pivoted-fallback math (including the
+    """inv3x3 in the planar [3, 3, P] layout (P the minor axis).
+    Identical cofactor + pivoted-fallback math (including the
     scale-invariant block normalization); the only difference is the
     output stacking: leading (i, j) axes keep every elementwise op a
-    full-lane [P] vector, where [P, 3, 3]'s size-3 minor dims waste
-    125/128 lanes per op (measured 40x off roofline on the downstream
-    consumers — see schur_S_dense)."""
+    contiguous [P] vector, and the result feeds schur_S_dense's
+    broadcast FMAs without a transpose."""
     a, b, c = V[..., 0, 0], V[..., 0, 1], V[..., 0, 2]
     d, e, f = V[..., 1, 1], V[..., 1, 2], V[..., 2, 2]
     inv_m, inv_m3 = _block_scale(a, b, c, d, e, f)
@@ -207,179 +208,6 @@ def inv3x3_planar(V):
     return Vp, ok
 
 
-def _pivoted_det3_rows(m):
-    """Partial-pivot Gaussian determinant on a 3x3 of planar [P] vectors
-    (m[i][j] is row i, col j). Same algorithm and numerical fixes as
-    _pivoted_det3 (compute_Vinv.cl:28-76 semantics), but row swaps are
-    where-selects on full-lane vectors instead of strided at[].set
-    updates on a [P, 3, 3] array."""
-    r0, r1, r2 = list(m[0]), list(m[1]), list(m[2])
-    sign = jnp.ones_like(r0[0])
-    c0 = (jnp.abs(r0[0]), jnp.abs(r1[0]), jnp.abs(r2[0]))
-    p1 = c0[1] > jnp.maximum(c0[0], c0[2])
-    p2 = (~p1) & (c0[2] > c0[0])
-
-    def swap(ra, rb, pred):
-        return (
-            [jnp.where(pred, b, a) for a, b in zip(ra, rb)],
-            [jnp.where(pred, a, b) for a, b in zip(ra, rb)],
-        )
-
-    r0, r1 = swap(r0, r1, p1)
-    r0, r2 = swap(r0, r2, p2)
-    sign = jnp.where(p1 | p2, -sign, sign)
-
-    a00 = r0[0]
-    safe00 = jnp.where(a00 != 0.0, a00, 1.0)
-    l1 = jnp.where(a00 != 0.0, r1[0] / safe00, 0.0)
-    l2 = jnp.where(a00 != 0.0, r2[0] / safe00, 0.0)
-    b11 = r1[1] - l1 * r0[1]
-    b12 = r1[2] - l1 * r0[2]
-    b21 = r2[1] - l2 * r0[1]
-    b22 = r2[2] - l2 * r0[2]
-
-    swap2 = jnp.abs(b21) > jnp.abs(b11)
-    t11 = jnp.where(swap2, b21, b11)
-    t12 = jnp.where(swap2, b22, b12)
-    t21 = jnp.where(swap2, b11, b21)
-    t22 = jnp.where(swap2, b12, b22)
-    sign = jnp.where(swap2, -sign, sign)
-
-    safe11 = jnp.where(t11 != 0.0, t11, 1.0)
-    c22 = t22 - jnp.where(t11 != 0.0, t21 / safe11, 0.0) * t12
-    return sign * a00 * t11 * c22
-
-
-def inv3x3_planar3(Vp):
-    """Batched symmetric 3x3 inverse on the fully planar [3, 3, P] layout
-    (inv3x3's cofactor + pivoted-fallback semantics; every op is a
-    full-lane [P] vector). The rare pivoted fallback is gated behind
-    `lax.cond` so the common all-well-conditioned case skips its ~40
-    vector ops entirely (inv3x3/inv3x3_planar compute it always).
-
-    Returns (Vinv [3, 3, P], ok)."""
-    a, b, c = Vp[0, 0], Vp[0, 1], Vp[0, 2]
-    d, e, f = Vp[1, 1], Vp[1, 2], Vp[2, 2]
-    inv_m, inv_m3 = _block_scale(a, b, c, d, e, f)
-    a, b, c = a * inv_m, b * inv_m, c * inv_m
-    d, e, f = d * inv_m, e * inv_m, f * inv_m
-    co00 = d * f - e * e
-    co01 = c * e - b * f
-    co02 = b * e - c * d
-    det = a * co00 + b * co01 + c * co02
-    need_fallback = jnp.abs(det) < 1e-16 * inv_m3
-    det_piv = jax.lax.cond(
-        jnp.any(need_fallback),
-        lambda: _pivoted_det3_rows(((a, b, c), (b, d, e), (c, e, f))),
-        lambda: det,
-    )
-    det_use = jnp.where(need_fallback, det_piv, det)
-    # singularity test on the scaled (O(1)-entry) determinant: anything
-    # within a few ulps of zero has no significant digits in its inverse.
-    # An exact ==0 test is flaky — XLA's FMA contraction turns exact
-    # cancellation into ~eps-level noise depending on fusion decisions.
-    blk_ok = jnp.isfinite(det_use) & (
-        jnp.abs(det_use) > 8.0 * jnp.finfo(det_use.dtype).eps
-    )
-    ok = jnp.all(blk_ok)
-    inv_det = jnp.where(blk_ok, 1.0 / jnp.where(blk_ok, det_use, 1.0), 0.0)
-    co11 = a * f - c * c
-    co12 = b * c - a * e
-    co22 = a * d - b * b
-    Vinv = jnp.stack([
-        jnp.stack([co00, co01, co02], axis=0),
-        jnp.stack([co01, co11, co12], axis=0),
-        jnp.stack([co02, co12, co22], axis=0),
-    ], axis=0) * (inv_det * inv_m)[None, None]
-    return Vinv, ok
-
-
-def damp_v_planar(Vp, mu):
-    """Additive diagonal damping on planar [3, 3, P] point blocks
-    (kern_update_UV's V half, CL_files/update_UV.cl) — one broadcast add."""
-    eye = jnp.eye(3, dtype=Vp.dtype)[:, :, None]
-    return Vp + mu * eye
-
-
-def damp_v_planar_marquardt(Vp, mu):
-    """Multiplicative (Marquardt) damping on planar V blocks: diagonal
-    entries become d*(1+mu); zero diagonals fall back to additive mu
-    (see core.hessian.damp_uv_marquardt)."""
-    eye = jnp.eye(3, dtype=Vp.dtype)[:, :, None]
-    d = jnp.where(Vp > 0.0, Vp, 1.0)  # only diag lanes are consumed
-    return Vp + mu * (d * eye)
-
-
-def diag_v_planar(Vp, n_pts):
-    """Diagonal of planar V blocks as [P, 3] (for the Marquardt gain-ratio
-    denominator dp^T (mu D dp + g))."""
-    return jnp.stack([Vp[0, 0], Vp[1, 1], Vp[2, 2]], axis=1)[:n_pts]
-
-
-def max_diag_planar(U, Vp, n_pts):
-    """max over U and planar-V diagonals (levmar.cpp:113-115); padded
-    planar columns (>= n_pts) are excluded."""
-    du = jnp.max(jnp.diagonal(U, axis1=-2, axis2=-1))
-    dv = jnp.max(
-        jnp.stack([Vp[0, 0, :n_pts], Vp[1, 1, :n_pts], Vp[2, 2, :n_pts]])
-    )
-    return jnp.maximum(du, dv)
-
-
-def schur_S_dense3(U, ZW3, Vinv, psum=None, prec=None):
-    """schur_S_dense on the 3-part planar factor from
-    ops.linearize_dense_pallas: ZW3 = (ZW0, ZW1, ZW2), each [6C, Pp],
-    ZWk[6c+i, p] = W_(c,p)[i, k]. ZY_j = sum_m ZW_m * Vinv[m, j] is nine
-    full-lane broadcast FMAs; S_off = sum_j ZY_j @ ZW_j^T is three MXU
-    matmuls (same FLOPs as the single [6C, 3P] contraction, no 17 MB
-    concat). Returns (S [6C, 6C], ZY3) with ZY3 reused downstream."""
-    C = U.shape[0]
-    prec = _PREC if prec is None else prec
-    ZY3 = tuple(
-        ZW3[0] * Vinv[0, j][None]
-        + ZW3[1] * Vinv[1, j][None]
-        + ZW3[2] * Vinv[2, j][None]
-        for j in range(3)
-    )
-    off = sum(
-        jnp.matmul(ZY3[j], ZW3[j].T, precision=prec) for j in range(3)
-    ).reshape(C, 6, C, 6)
-    if psum is not None:
-        off = psum(off)
-    S = -off
-    S = S.at[jnp.arange(C), :, jnp.arange(C), :].add(U)
-    return S.reshape(6 * C, 6 * C), ZY3
-
-
-def reduced_rhs_dense3(ga, gbp, ZY3, psum=None, prec=None):
-    """ea = ga - ZY @ gb on the 3-part planar layout (kern_compute_ea);
-    gbp is [3, Pp]."""
-    prec = _PREC if prec is None else prec
-    term = sum(
-        jnp.matmul(ZY3[j], gbp[j], precision=prec) for j in range(3)
-    )
-    if psum is not None:
-        term = psum(term)
-    return ga - term.reshape(-1, 6)
-
-
-def back_substitute_dense3(gbp, ZW3, Vinv, dpa, prec=None):
-    """eb_j = gb_j - ZW_j^T dpa; dpb_k = sum_j Vinv[j, k] eb_j
-    (kern_compute_eb + kern_compute_dpb, planar). Returns dpb [3, Pp]."""
-    prec = _PREC if prec is None else prec
-    v = dpa.reshape(-1)
-    eb = tuple(
-        gbp[j] - jnp.matmul(v, ZW3[j], precision=prec) for j in range(3)
-    )
-    return jnp.stack(
-        [
-            Vinv[0, k] * eb[0] + Vinv[1, k] * eb[1] + Vinv[2, k] * eb[2]
-            for k in range(3)
-        ],
-        axis=0,
-    )
-
-
 def y_blocks(W, Vinv, pt_idx):
     """Y_o = W_o Vinv_{i(o)}  [O,6,3] (kern_compute_Yblks)."""
     return jnp.einsum(
@@ -398,17 +226,15 @@ def schur_S(U, Y, W, pair_o1, pair_o2, pair_bucket, n_cams, psum=None):
     sums. Padded pair entries carry bucket C*C, which lands in a discarded
     overflow segment.
 
-    (A Pallas pair-stream variant existed through round 3; the measured
-    shootout — SCHUR_COMPARE.json — showed the dense encoding 10-15x
-    faster on every shape where either pairs variant could win, so the
-    kernel was removed and pairs is XLA-only.)"""
+    The pair list is the encoding for problems whose dense [C, P] table
+    exceeds constants.DENSE_SCHUR_MAX_ENTRIES."""
     C = n_cams
     contrib = jnp.einsum(
         "nij,nkj->nik", Y[pair_o1], W[pair_o2],
         precision=jax.lax.Precision.HIGHEST,
     )  # [N,6,6]
-    # bucket reduction: MXU one-hot matmul on TPU, scatter elsewhere;
-    # padded pair entries carry bucket C*C and contribute nothing
+    # bucket reduction; padded pair entries carry bucket C*C and
+    # contribute nothing
     off = indexed_sum(
         contrib.reshape(-1, 36), pair_bucket, C * C,
         indices_are_sorted=True,
@@ -429,16 +255,14 @@ def stack_blocks(W, blk_idx):
 
     One row gather driven by the blk_idx table (the reference's dense
     (point x cam) -> obs lookup, misc.cpp:190-199, transposed); unseen
-    cells index the appended zero row. On TPU this replaces every
-    scatter/segment/one-hot reduction downstream: S, ea, and eb all become
-    dense MXU contractions against ZW (see schur_S_dense).
+    cells index the appended zero row. Every scatter/segment reduction
+    downstream becomes a dense matrix product against ZW: S, ea and eb
+    (see schur_S_dense).
 
-    Layout note: the planar 2-D form keeps the huge point axis in the TPU
-    lane dimension for every downstream op. The earlier [C, 6, P, 3]
-    layout put size-3 in the minor dim, which cost ~40x roofline on the
-    retry chain (measured); planar runs the S assembly at roofline. The
-    gather + transpose happens once per linearization — the damping-retry
-    loop is relayout-free."""
+    Layout note: the planar 2-D form keeps the long point axis minor for
+    every downstream op, so the size-3 block axes never sit in the
+    minor dimension. The gather + transpose happens once per
+    linearization — the damping-retry loop is relayout-free."""
     O = W.shape[0]
     C, P = blk_idx.shape
     W_pad = jnp.concatenate(
@@ -450,10 +274,11 @@ def stack_blocks(W, blk_idx):
     return G.reshape(C * 6, 3 * P)
 
 
-# True-f32 contractions: TPU dot_general defaults to bf16 multiplies
-# (~4e-3 relative error in S — it caps how far the f32 fast path can
-# converge); HIGHEST keeps full input precision for ~25% more matmul time
-# on a matmul that is a fraction of the iteration.
+# True-f32 contractions: without a pinned precision an accelerator may
+# multiply f32 operands in a reduced format (TF32 on NVIDIA GPUs rounds
+# them to a 10-bit mantissa, up to 2^-11 relative error per product),
+# which caps how far the f32 path can converge. HIGHEST keeps full f32
+# products.
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -461,15 +286,14 @@ def schur_S_dense(U, ZW, Vp, psum=None):
     """Dense-stacked Schur assembly: S = blockdiag(U) - ZY @ ZW^T.
 
     Same math as schur_S (kern_compute_S, CL_files/compute_S.cl:40-56) in
-    one [6C, 3P] x [3P, 6C] MXU contraction: the p-axis sum enumerates
+    one [6C, 3P] x [3P, 6C] contraction: the p-axis sum enumerates
     exactly the covisibility pairs, because unseen (c, p) cells are zero.
     ZW arrives planar [6C, 3P] (stack_blocks) and Vp planar [3, 3, P]
     (inv3x3_planar), so ZY[r, jP+p] = sum_k ZW[r, kP+p] Vp[k, j, p] is
-    nine full-lane broadcast FMAs on the VPU and is born matmul-ready —
-    the damping-retry loop does no relayouts at all (this exact chain
-    measured 16x faster than the [C, 6, P, 3] block layout it replaced).
-    Also returns ZY [6C, 3P], reused by reduced_rhs_dense. `U` must be
-    mesh-global and damped; `psum` reduces the shard-local sum."""
+    nine broadcast FMAs and is born matmul-ready — the damping-retry loop
+    does no relayouts at all. Also returns ZY [6C, 3P], reused by
+    reduced_rhs_dense. `U` must be mesh-global and damped; `psum` reduces
+    the shard-local sum."""
     R = ZW.shape[0]
     C = R // 6
     P = ZW.shape[1] // 3

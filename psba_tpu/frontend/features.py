@@ -2,9 +2,9 @@
 
 Harris corner response with fixed-size top-K selection (static shapes for
 XLA), plus a simple normalized-patch descriptor. Everything is expressed
-as convolutions/reductions that XLA fuses and tiles onto the VPU/MXU; no
-data-dependent shapes anywhere (corner count is a static K with validity
-scores, the TPU-friendly equivalent of thresholding).
+as convolutions/reductions that XLA fuses; no data-dependent shapes
+anywhere (corner count is a static K with validity scores, the
+static-shape equivalent of thresholding).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Descriptor matching (jitted): mutual nearest neighbor + Lowe ratio test.
 
-One dense [K1, K2] distance matrix per image pair — an MXU matmul
+One dense [K1, K2] distance matrix per image pair — one matmul
 (descriptors are L2-normalized, so distance ranking reduces to a dot
 product) — followed by row/column argmax agreement. Static shapes: the
 output is a fixed-size match list with a validity mask.

@@ -2,7 +2,11 @@
 
 from psba_tpu.io.sba_text import load_problem, read_cams, read_pts
 from psba_tpu.io.bal import read_bal, bal_to_problem
-from psba_tpu.io.synthetic import synthesize_points_for_cams, synthetic_problem
+from psba_tpu.io.synthetic import (
+    bal_shaped_problem,
+    synthesize_points_for_cams,
+    synthetic_problem,
+)
 
 __all__ = [
     "load_problem",
@@ -10,6 +14,7 @@ __all__ = [
     "read_pts",
     "read_bal",
     "bal_to_problem",
+    "bal_shaped_problem",
     "synthesize_points_for_cams",
     "synthetic_problem",
 ]

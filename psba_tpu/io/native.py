@@ -1,8 +1,8 @@
 """ctypes bindings to the native C++ loader (native/loader.cpp).
 
 The reference's problem I/O and index generation are C++ (readparams.cpp,
-misc.cpp:178-218); this module provides the equivalent native fast path for
-the TPU framework — text parsing of large points files is the one
+misc.cpp:178-218); this module provides the equivalent native fast path —
+text parsing of large points files is the one
 host-bound step of problem setup. Falls back transparently to the pure
 Python reader when the shared library has not been built
 (`python -m psba_tpu.io.native --build` or `make -C native`).

@@ -1,9 +1,14 @@
 """Synthetic problem generation.
 
-Two uses:
+Three uses, one camera rig and one point sampler between them:
   1. `synthetic_problem` — fully synthetic, well-conditioned problems of any
-     size for unit tests and kernel benchmarks.
-  2. `synthesize_points_for_cams` — regenerate a plausible points/observation
+     size for unit tests: a ring of cameras, each seeing most points.
+  2. `bal_shaped_problem` — the same ring rig with points sampled the way
+     BAL problems are built (Agarwal et al. 2010): each point is seen by a
+     few cameras, about 5 on average, so the camera-point table is a few
+     percent dense. Seeded, so a benchmark or test regenerates the exact
+     problem at any published BAL shape without data files.
+  3. `synthesize_points_for_cams` — regenerate a plausible points/observation
      set for the bundled BAL camera files whose points files the reference
      does not ship (Trafalgar-50, Dubrovnik-16/88, Rome-93, Venice-52,
      Ladybug-138 — SURVEY.md §2.4), so those configurations can be exercised
@@ -34,22 +39,12 @@ def _project_np(K, pc):
     return np.stack([u, v], axis=-1)
 
 
-def synthetic_problem(
-    n_cams: int = 6,
-    n_pts: int = 200,
-    noise_px: float = 0.5,
-    point_jitter: float = 0.01,
-    seed: int = 0,
-    min_obs: int = 2,
-    dtype=np.float64,
-) -> BAProblem:
-    """Ring of cameras looking at a point cloud at the origin.
+def _ring_rig(n_cams: int, rng):
+    """Ring of cameras looking at the origin: (K [C,5], q0 [C,4], t [C,3]).
 
-    Ground-truth geometry is perturbed (points jittered, pixel noise added)
-    so the optimizer has a nontrivial basin to descend.
-    """
-    rng = np.random.default_rng(seed)
-    # cameras on a ring of radius R in the xz-plane, looking at origin
+    Centers lie on a radius-5 arc of 0.8*pi in the xz-plane (small random
+    height); each camera's z-axis points at the origin (+z looks forward),
+    focal length 800 px, principal point (320, 240)."""
     R = 5.0
     ang = np.linspace(0, 0.8 * np.pi, n_cams)
     centers = np.stack(
@@ -71,6 +66,25 @@ def synthetic_problem(
 
     fu = 800.0
     K = np.tile(np.array([fu, 320.0, 240.0, 1.0, 0.0]), (n_cams, 1))
+    return K, q0, t
+
+
+def synthetic_problem(
+    n_cams: int = 6,
+    n_pts: int = 200,
+    noise_px: float = 0.5,
+    point_jitter: float = 0.01,
+    seed: int = 0,
+    min_obs: int = 2,
+    dtype=np.float64,
+) -> BAProblem:
+    """Ring of cameras looking at a point cloud at the origin.
+
+    Ground-truth geometry is perturbed (points jittered, pixel noise added)
+    so the optimizer has a nontrivial basin to descend.
+    """
+    rng = np.random.default_rng(seed)
+    K, q0, t = _ring_rig(n_cams, rng)
 
     pts_true = rng.standard_normal((n_pts, 3)) * np.array([1.0, 1.0, 1.0])
 
@@ -96,6 +110,29 @@ def synthetic_problem(
     )
     prob.validate()
     return prob
+
+
+def bal_shaped_problem(
+    n_cams: int,
+    n_pts: int,
+    mean_obs: float = 5.0,
+    seed: int = 0,
+    noise_px: float = 1.0,
+    point_jitter: float = 2e-3,
+    dtype=np.float64,
+) -> BAProblem:
+    """A problem of BAL's shape on the ring rig of `synthetic_problem`.
+
+    Exactly `n_pts` points, each seen by at least 2 of the `n_cams`
+    cameras and by `mean_obs` on average (BAL's sets average about 5),
+    sampled by the same point synthesis as `synthesize_points_for_cams`.
+    The same arguments give identical arrays."""
+    rng = np.random.default_rng(seed)
+    K, q0, t = _ring_rig(n_cams, rng)
+    return _synthesize_points(
+        K, q0, t, n_pts, mean_obs, noise_px, point_jitter, rng,
+        look_sign=1.0, dtype=dtype,
+    )
 
 
 def _mat_to_quat(R):
@@ -132,22 +169,32 @@ def synthesize_points_for_cams(
     dtype=np.float64,
 ) -> BAProblem:
     """Generate a consistent points/observations set for an existing camera
-    file (BAL-convention cameras look down -z => look_sign=-1).
-
-    Points are created by backprojecting random pixels of random cameras at
-    random depths, then kept with the cameras whose reprojection stays within
-    a plausible image window. Measurements are ground-truth projections plus
-    pixel noise; the optimized initial points are jittered so the solver has
-    real work.
-    """
+    file (BAL-convention cameras look down -z => look_sign=-1)."""
     from psba_tpu.io.sba_text import read_cams
 
     rng = np.random.default_rng(seed)
     K, q0, t, _ = read_cams(cams_path, dtype=dtype)
+    return _synthesize_points(
+        K, q0, t, n_pts, mean_obs, noise_px, point_jitter, rng,
+        look_sign=look_sign, dtype=dtype,
+    )
+
+
+def _synthesize_points(K, q0, t, n_pts, mean_obs, noise_px, point_jitter,
+                       rng, look_sign, dtype):
+    """Points and observations for fixed cameras (K, q0, t).
+
+    Points are created by backprojecting random pixels of random cameras at
+    random depths and kept when at least 2 cameras see them inside a
+    plausible image window. Each point then keeps 2 + Poisson(mean_obs - 2)
+    of its visible cameras (all of them when fewer are visible), chosen at
+    random. Measurements are ground-truth projections plus pixel noise; the
+    optimized initial points are jittered so the solver has real work.
+    """
     C = len(K)
     Rm = _quat_to_mat_batch(q0)
     fu = K[:, 0]
-    half_w = np.median(fu) * 0.35  # plausible half image width (BAL: u0=0)
+    half_w = np.median(fu) * 0.35  # plausible half image width
     depth_scale = np.median(np.linalg.norm(t, axis=1)) + 1.0
 
     pts_list, seen_target = [], max(n_pts, 1)
@@ -164,12 +211,13 @@ def synthesize_points_for_cams(
         pc = np.stack([xc, yc, zc], axis=1)
         # world point: X = R^T (pc - t)
         X = np.einsum("cji,cj->ci", Rm[j], pc - t[j])
-        # visibility in all cameras
+        # visibility in all cameras (window centred on the principal point)
         pca = np.einsum("cij,pj->pci", Rm, X) + t[None]  # [batch, C, 3]
         z = pca[..., 2]
         front = (look_sign * z) > 0.05 * depth_scale
         uv = np.stack(
-            [fu[None] * pca[..., 0] / z, fu[None] * K[None, :, 3] * pca[..., 1] / z],
+            [fu[None] * pca[..., 0] / z,
+             fu[None] * K[None, :, 3] * pca[..., 1] / z],
             axis=-1,
         )
         inwin = np.all(np.abs(uv) < half_w, axis=-1)
@@ -181,17 +229,17 @@ def synthesize_points_for_cams(
     X = np.concatenate(pts_list)[:seen_target]
     vis = np.concatenate(vis_list)[:seen_target]
 
-    # cap views per point to hit the target mean observation count
-    cap = max(2, int(round(mean_obs)))
-    pt_idx, cam_idx = [], []
-    for i in range(len(X)):
-        cams_i = np.nonzero(vis[i])[0]
-        if len(cams_i) > cap:
-            cams_i = np.sort(rng.choice(cams_i, size=cap, replace=False))
-        pt_idx.append(np.full(len(cams_i), i, dtype=np.int64))
-        cam_idx.append(cams_i)
-    pt_idx = np.concatenate(pt_idx).astype(np.int32)
-    cam_idx = np.concatenate(cam_idx).astype(np.int32)
+    # views per point: 2 + Poisson(mean_obs - 2), capped by what it sees;
+    # the kept cameras are the k lowest of random keys over the visible ones
+    P = len(X)
+    want = 2 + rng.poisson(max(mean_obs - 2.0, 0.0), size=P)
+    k = np.minimum(want, vis.sum(axis=1))
+    keys = np.where(vis, rng.random((P, C)), np.inf)
+    rank = np.argsort(np.argsort(keys, axis=1), axis=1)
+    sel = rank < k[:, None]
+    pt_idx, cam_idx = np.nonzero(sel)          # sorted by point
+    pt_idx = pt_idx.astype(np.int32)
+    cam_idx = cam_idx.astype(np.int32)
 
     pc = np.einsum("oij,oj->oi", Rm[cam_idx], X[pt_idx]) + t[cam_idx]
     uv = np.stack(
@@ -217,8 +265,8 @@ def synthesize_points_for_cams(
     )
 
     prob = BAProblem(
-        K=K, q0=q0,
-        cams=np.concatenate([np.zeros_like(t), t], axis=1),
+        K=np.asarray(K, dtype), q0=np.asarray(q0, dtype),
+        cams=np.concatenate([np.zeros_like(t), t], axis=1).astype(dtype),
         pts=pts0.astype(dtype), obs=obs.astype(dtype),
         cam_idx=cam_idx, pt_idx=pt_idx,
     )

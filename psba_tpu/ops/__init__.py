@@ -1,6 +1,2 @@
-"""TPU kernels and backend-dispatched primitives.
-
-`reduce.indexed_sum` picks the reduction implementation per backend;
-Pallas kernels live beside their XLA reference implementations and are
-selected through the same dispatch points.
-"""
+"""Shared primitives: `reduce.indexed_sum`, the segment reduction behind
+the U/V/g/S accumulations."""

@@ -1,49 +1,20 @@
-"""Backend-dispatched indexed reductions.
+"""Indexed reductions.
 
-The same mathematical operation — sum rows of `data` into `n_segments`
-buckets given per-row indices (the reference's kern_compute_U/V/g/S
-accumulation pattern) — wants opposite lowerings per backend:
-
-  - TPU: a one-hot matmul. The MXU eats the [S, N] x [N, K] contraction;
-    XLA's scatter-add lowering serializes and is 2-3x slower.
-  - CPU (tests, oracle runs): scatter segment-sum. The one-hot contraction
-    is O(N*S) scalar work — catastrophic for large S (e.g. the C^2 Schur
-    buckets).
-
-Backend inspection happens at trace time, so the choice is baked per jit.
+Sum rows of `data` into `n_segments` buckets given per-row indices (the
+reference's kern_compute_U/V/g/S accumulation pattern). XLA lowers
+`segment_sum` to a scatter-add.
 """
 
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
 
 
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-def indexed_sum(data, idx, n_segments, indices_are_sorted=False,
-                force=None):
+def indexed_sum(data, idx, n_segments, indices_are_sorted=False):
     """sum_{n: idx[n]=s} data[n] -> [n_segments, ...].
 
     `data` [N, ...] float, `idx` [N] int32 in [0, n_segments); out-of-range
-    indices (padding markers) contribute nothing in either lowering.
-    `force` in {"matmul", "scatter"} overrides dispatch (tests)."""
-    mode = force or ("matmul" if _on_tpu() else "scatter")
-    if mode == "matmul":
-        onehot = (idx[:, None] == jnp.arange(n_segments)[None, :]).astype(
-            data.dtype
-        )
-        flat = data.reshape(data.shape[0], -1)
-        out = jax.lax.dot_general(
-            onehot, flat, (((0,), (0,)), ((), ())),
-            preferred_element_type=data.dtype,
-            precision=jax.lax.Precision.HIGHEST,  # the one-hot operand is
-            # exact either way; HIGHEST keeps the data operand at f32
-            # instead of the MXU's default bf16 rounding
-        )
-        return out.reshape((n_segments,) + data.shape[1:])
+    indices (padding markers) contribute nothing."""
     return jax.ops.segment_sum(
         data, idx, num_segments=n_segments,
         indices_are_sorted=indices_are_sorted,

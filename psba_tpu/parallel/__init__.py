@@ -5,8 +5,7 @@ design here is the BASELINE.json north star: points and their observations
 are partitioned across devices (contiguous point ranges, so Schur
 covisibility pairs stay shard-local), cameras and all solver control
 scalars are replicated, and the reduced camera system (U, ga, S, ea) is
-assembled with `psum` over the mesh axis — collectives ride ICI under
-pjit/shard_map. V-block solves and point back-substitution never leave the
+assembled with `psum` over the mesh axis under shard_map. V-block solves and point back-substitution never leave the
 local shard.
 """
 

@@ -3,9 +3,10 @@ mesh-polymorphic.
 
 With `axis=None` every reduction is the identity and the solvers run
 single-device. Inside `shard_map` over a mesh axis, `psum`/`pmax` become
-ICI collectives. The solvers insert reductions exactly where the reference
-crossed its device->host boundary for scalar reductions (SURVEY.md §1 data
-flow) — which is also exactly the set of cross-shard dependencies:
+collectives across the mesh. The solvers insert reductions exactly where
+the reference crossed its device->host boundary for scalar reductions
+(SURVEY.md §1 data flow) — which is also exactly the set of cross-shard
+dependencies:
 U/ga/S/ea assembly, L2 norms/dots over the point-parameter shard, and the
 max-diagonal damping seed.
 """

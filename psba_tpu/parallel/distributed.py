@@ -2,9 +2,9 @@
 
 The reference is strictly single-process / single-device (SURVEY.md §2.3);
 the distributed scope comes from the north star: partition points and
-observations across TPU hosts, assemble the reduced camera system with
-psum/reduce-scatter over ICI, keep V-block solves local, replicate the
-scalar solver state.
+observations across hosts, assemble the reduced camera system with
+psum/reduce-scatter, keep V-block solves local, replicate the scalar
+solver state.
 
 Layering:
   - psba_tpu.parallel.shard owns the partitioning math and the shard_map'd
@@ -47,8 +47,9 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> None:
     """Initialize jax.distributed (idempotent; no-op for 1 process).
 
-    On TPU pods the three arguments are auto-detected from the environment;
-    pass them explicitly for CPU/GPU multi-process runs (and tests)."""
+    Pass all three arguments explicitly: on CPU and GPU hosts nothing in
+    the environment tells JAX about the cluster, and a bare
+    `jax.distributed.initialize()` fails there."""
     if num_processes == 1 and coordinator_address is None:
         return
     try:
@@ -63,7 +64,8 @@ def init_distributed(coordinator_address: str | None = None,
 
 
 def global_mesh(n_devices: int | None = None) -> Mesh:
-    """1-D mesh over all processes' devices (ICI+DCN spanning)."""
+    """1-D mesh over all processes' devices (the mesh follows the
+    algorithm: one point-shard axis, whatever links join the devices)."""
     devs = jax.devices()
     n = n_devices or len(devs)
     return jax.make_mesh((n,), (AXIS,), devices=devs[:n])
@@ -102,9 +104,6 @@ def _slice_local(sp: ShardedProblem, mesh: Mesh) -> ShardedProblem:
         pair_o2=take(sp.pair_o2, sp.n_per),
         pair_bucket=take(sp.pair_bucket, sp.n_per),
         blk=take(sp.blk, sp.p_per, axis=1),
-        obs_du=take(sp.obs_du, sp.p_per, axis=1),
-        obs_dv=take(sp.obs_dv, sp.p_per, axis=1),
-        valid_d=take(sp.valid_d, sp.p_per, axis=1),
     )
 
 
@@ -151,21 +150,6 @@ def _globalize(mesh: Mesh, sp: ShardedProblem, sp_local: ShardedProblem,
             if dense else None
         ),
         valid=gs(sp_local.valid, sp.o_per),
-        obs_du=(
-            g(sp_local.obs_du, P(None, AXIS),
-              (sp_local.obs_du.shape[0], D * sp.p_per))
-            if dense else None
-        ),
-        obs_dv=(
-            g(sp_local.obs_dv, P(None, AXIS),
-              (sp_local.obs_dv.shape[0], D * sp.p_per))
-            if dense else None
-        ),
-        valid_d=(
-            g(sp_local.valid_d, P(None, AXIS),
-              (sp_local.valid_d.shape[0], D * sp.p_per))
-            if dense else None
-        ),
     )
     cams0 = g(fdt(sp_local.cams), P())
     pts0 = gs(fdt(sp_local.pts), sp.p_per)

@@ -8,7 +8,7 @@ Partitioning scheme (BASELINE.json north star; SURVEY.md §2.3):
   - cameras, intrinsics, and all solver control scalars are replicated;
   - the reduced camera system (U, ga, S, ea) and every global scalar
     (L2 norms, dots, max-diagonal) are formed with `psum`/`pmax` over the
-    mesh axis — the only cross-device traffic, riding ICI.
+    mesh axis — the only cross-device traffic.
 
 Per LM iteration the collective payload is O(C^2 * 36) for S plus O(C * 6)
 vectors and a handful of scalars — independent of the number of points and
@@ -29,7 +29,7 @@ shard_map = jax.shard_map
 
 from psba_tpu import constants as CC
 from psba_tpu.parallel.ctx import MeshCtx
-from psba_tpu.problem import BAProblem, build_blk_idx, build_covis_pairs
+from psba_tpu.problem import BAProblem, build_covis_pairs
 from psba_tpu.solvers.lm import lm_run
 from psba_tpu.solvers.tr import tr_run
 from psba_tpu.solvers.types import OptState, ProblemArrays, SolverConfig
@@ -61,11 +61,6 @@ class ShardedProblem:
     pair_bucket: np.ndarray | None = None  # [D*n_per]; C*C marks padding
     blk: np.ndarray | None = None  # [C, D*p_per] shard-local obs numbering;
     # o_per marks unseen cells (sharded on the point axis, dim 1)
-    # dense (cam x point) observation tables for the planar dense-grid
-    # Pallas linearization (see solvers/types.ProblemArrays)
-    obs_du: np.ndarray | None = None   # [C, D*p_per] f32
-    obs_dv: np.ndarray | None = None   # [C, D*p_per] f32
-    valid_d: np.ndarray | None = None  # [C, D*p_per] f32
 
 
 def shard_problem(prob: BAProblem, n_devices: int,
@@ -122,7 +117,6 @@ def shard_problem(prob: BAProblem, n_devices: int,
 
     obs, cam_idx, pt_idx, valid, pts, pt_valid = [], [], [], [], [], []
     po1, po2, pbk, blks = [], [], [], []
-    odus, odvs, vds = [], [], []
     for s in shards:
         n_o, n_p = len(s["cam_idx"]), len(s["pts"])
         if dense:
@@ -131,12 +125,6 @@ def shard_problem(prob: BAProblem, n_devices: int,
             b = np.full((C, p_per), o_per, dtype=np.int32)
             b[s["cam_idx"], s["pt_idx"]] = np.arange(n_o, dtype=np.int32)
             blks.append(b)
-            from psba_tpu.ops.linearize_dense import dense_obs_tables
-
-            du, dv, vd = dense_obs_tables(b, s["obs"], o_per)
-            odus.append(du)
-            odvs.append(dv)
-            vds.append(vd)
         # padded observations duplicate the shard's first observation so the
         # residual stays finite; `valid` masks them out of every reduction
         obs.append(pad(s["obs"], o_per, fill=0) if n_o == o_per else
@@ -162,9 +150,6 @@ def shard_problem(prob: BAProblem, n_devices: int,
         pair_o2=None if dense else cat(po2).astype(np.int32),
         pair_bucket=None if dense else cat(pbk).astype(np.int32),
         blk=np.concatenate(blks, axis=1) if dense else None,
-        obs_du=np.concatenate(odus, axis=1) if dense else None,
-        obs_dv=np.concatenate(odvs, axis=1) if dense else None,
-        valid_d=np.concatenate(vds, axis=1) if dense else None,
         pt_starts=pt_starts,
     )
 
@@ -186,9 +171,6 @@ def _shard_specs(dense: bool, cfg: SolverConfig):
         pair_bucket=None if dense else P(AXIS),
         blk_idx=P(None, AXIS) if dense else None,  # point axis is dim 1
         valid=P(AXIS),
-        obs_du=P(None, AXIS) if dense else None,
-        obs_dv=P(None, AXIS) if dense else None,
-        valid_d=P(None, AXIS) if dense else None,
     )
     # history rows are built entirely from psum'd (replicated) scalars, so
     # the capture buffer is replicated across shards
@@ -251,8 +233,6 @@ def make_sharded_runners(sp: ShardedProblem, cfg: SolverConfig, mesh: Mesh,
             pair_bucket=opt(sp.pair_bucket),
             blk_idx=opt(sp.blk),
             valid=jnp.asarray(sp.valid),
-            obs_du=opt(sp.obs_du), obs_dv=opt(sp.obs_dv),
-            valid_d=opt(sp.valid_d),
         )
         pts0 = fdt(sp.pts)
         cams0 = fdt(sp.cams)
@@ -292,44 +272,45 @@ def make_sharded_runners(sp: ShardedProblem, cfg: SolverConfig, mesh: Mesh,
     return pa_global, cams0, pts0, init_s, lm_s, tr_s
 
 
-# observation cap for the host-side damping probe: the probe estimates
-# an orders-of-magnitude diagonal ratio, so a deterministic stride
-# subsample is plenty — materializing full-problem [O,2,6] Jacobian
-# intermediates on every process would defeat the distributed path's
-# shard-local memory model at exactly the scales it exists for
+# observation chunk of the host-side damping probe: materializing
+# full-problem [O,2,6] Jacobian intermediates on every process would
+# defeat the distributed path's shard-local memory model at exactly the
+# scales it exists for
 _PROBE_MAX_OBS = 262_144
 
 
 def _resolve_damping_host(cfg: SolverConfig, prob: BAProblem, dtype):
-    """Resolve damping="auto" BEFORE sharding.
+    """Resolve damping="auto" BEFORE sharding, exactly as solve() does.
 
     Every process/device evaluates the same deterministic probe on the
     replicated problem metadata, so the resolved config (a static jit
-    argument) is identical everywhere — no collective needed. Beyond
-    _PROBE_MAX_OBS observations a fixed-stride subsample keeps the probe
-    intermediates bounded; points whose observations are all skipped
-    simply contribute no diagonal (the d>0 mask excludes them), which
-    the orders-of-magnitude threshold tolerates."""
+    argument) is identical everywhere — no collective needed. The
+    diag(J^T J) sums are taken over the whole problem in chunks of
+    _PROBE_MAX_OBS observations (the last one padded and masked), which
+    bounds the probe's intermediates. (A strided subsample, which this
+    replaced, shrinks the smallest diagonal where a point keeps one of
+    its observations, and at Rome-93's 3.1e5 observations resolved f32 to
+    marquardt where solve() resolved additive.)"""
     if cfg.damping != "auto":
         return cfg
-    import numpy as _np
-
-    from psba_tpu.solvers.types import resolve_damping
+    from psba_tpu.solvers.types import diag_sums, resolve_from_diag
 
     dt = dtype or prob.pts.dtype
-    O = prob.obs.shape[0]
-    stride = max(1, -(-O // _PROBE_MAX_OBS))
-    sl = _np.s_[::stride]
-    pa_probe = ProblemArrays(
-        K=jnp.asarray(prob.K, dt), q0=jnp.asarray(prob.q0, dt),
-        obs=jnp.asarray(prob.obs[sl], dt),
-        cam_idx=jnp.asarray(prob.cam_idx[sl]),
-        pt_idx=jnp.asarray(prob.pt_idx[sl]),
-    )
-    return resolve_damping(
-        cfg, pa_probe, jnp.asarray(prob.cams, dt),
-        jnp.asarray(prob.pts, dt),
-    )
+    O, C, Pn = prob.n_obs, prob.n_cams, prob.n_pts
+    K, q0 = jnp.asarray(prob.K, dt), jnp.asarray(prob.q0, dt)
+    cams, pts = jnp.asarray(prob.cams, dt), jnp.asarray(prob.pts, dt)
+    chunk = min(O, _PROBE_MAX_OBS)
+    dU = dV = 0.0
+    for lo in range(0, O, chunk):
+        n = min(chunk, O - lo)
+        idx = np.arange(lo, lo + chunk).clip(max=O - 1)
+        valid = None if O <= chunk else jnp.asarray(np.arange(chunk) < n)
+        u, v = diag_sums(
+            K, q0, cams, pts, jnp.asarray(prob.cam_idx[idx]),
+            jnp.asarray(prob.pt_idx[idx]), valid, cfg.clamp_quat, C, Pn,
+        )
+        dU, dV = dU + np.asarray(u), dV + np.asarray(v)
+    return resolve_from_diag(cfg, dU, dV, dt)
 
 
 def solve_sharded(prob: BAProblem, cfg: SolverConfig | None = None,

@@ -24,8 +24,8 @@ ordered pair of observations (o1, o2) of that point, one entry
 drives a batched 6x3 @ 3x6 product + segment-sum that assembles exactly the
 nonzero Y_ik W_il^T terms of S (reference kern_compute_S,
 CL_files/compute_S.cl:40-56). The pair list is static per problem, built
-once on the host, and maps to MXU-batched matmuls + one segment reduction
-on TPU.
+once on the host, and maps to batched block matmuls + one segment
+reduction.
 
 Observations are kept sorted by point index (the text format's natural
 order), so per-point reductions are segment-sums over contiguous ranges.
@@ -115,49 +115,6 @@ class BAProblem:
                 self.pt_idx, self.cam_idx, self.n_cams, self.n_pts
             ),
         )
-
-    def with_tile_point_order(self) -> tuple["BAProblem", np.ndarray]:
-        """Reorder points so covisible points cluster into the dense
-        kernels' grid tiles.
-
-        Points are sorted by (min, max) observing camera and assigned to
-        planar positions in the kernels' tile-visit order
-        (ops.linearize_dense.tile_slot_order), so each camera's
-        observations concentrate into few (camera, tile) grid pairs and
-        the kernels' exact occupancy skip (build_tile_mask) removes the
-        empty ones. Measured tile occupancy on the BAL configs drops
-        from ~1.0 to 0.77 (rome93) / 0.57 (dubrovnik88) / 0.53
-        (venice52) / 0.41 (ladybug138). Observations are re-sorted to
-        keep the sorted-by-point invariant.
-
-        Returns (problem, newpos) with newpos[i] = the new index of
-        original point i; map an optimized pts array back with
-        pts_original_order = pts_new_order[newpos]."""
-        from psba_tpu.ops.linearize_dense import tile_slot_order
-
-        P, C = self.n_pts, self.n_cams
-        mincam = np.full(P, C, np.int64)
-        np.minimum.at(mincam, self.pt_idx, self.cam_idx)
-        maxcam = np.zeros(P, np.int64)
-        np.maximum.at(maxcam, self.pt_idx, self.cam_idx)
-        order = np.lexsort((maxcam, mincam))     # point ids, sorted
-        slots = tile_slot_order(P)               # planar slots, visit order
-        newpos = np.empty(P, np.int64)
-        newpos[order] = slots
-        pts_new = np.empty_like(self.pts)
-        pts_new[newpos] = self.pts
-        pt_idx_new = newpos[self.pt_idx].astype(self.pt_idx.dtype)
-        o = np.argsort(pt_idx_new, kind="stable")
-        return dataclasses.replace(
-            self,
-            pts=pts_new,
-            obs=self.obs[o],
-            cam_idx=self.cam_idx[o],
-            pt_idx=pt_idx_new[o],
-            obs_cov=None if self.obs_cov is None else self.obs_cov[o],
-            # cached encodings are keyed on the old order
-            pair_o1=None, pair_o2=None, pair_bucket=None, blk_idx=None,
-        ), newpos
 
     def summary(self) -> str:
         n_pairs = 0 if self.pair_o1 is None else len(self.pair_o1)

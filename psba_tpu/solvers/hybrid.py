@@ -1,8 +1,8 @@
 """Hybrid LM <-> TR controller.
 
 The reference driver alternates levmar() and trust_region() until either
-returns a flag other than the switch requests (PSBA/main.cpp:193-208). The
-TPU version keeps the alternation on the host — it transfers exactly one
+returns a flag other than the switch requests (PSBA/main.cpp:193-208). This
+version keeps the alternation on the host — it transfers exactly one
 scalar (the flag) per phase — while each phase runs fully on device.
 """
 
@@ -11,14 +11,13 @@ from __future__ import annotations
 import dataclasses
 import time
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from psba_tpu import constants as CC
 from psba_tpu.problem import BAProblem
-from psba_tpu.solvers.lm import lm_fresh_aux, lm_run, lm_run_jit
-from psba_tpu.solvers.tr import tr_fresh_aux, tr_run, tr_run_jit
+from psba_tpu.solvers.lm import lm_fresh_aux, lm_run_jit
+from psba_tpu.solvers.tr import tr_fresh_aux, tr_run_jit
 from psba_tpu.solvers.types import OptState, ProblemArrays, SolverConfig
 
 
@@ -86,7 +85,7 @@ def solve(
     """Full hybrid optimization of a BAProblem.
 
     `dtype` optionally casts the problem (e.g. jnp.float32 for the fast
-    TPU path); default keeps the problem's own precision.
+    path); default keeps the problem's own precision.
     `checkpoint_dir` enables checkpointing with automatic resume from the
     newest checkpoint. `checkpoint_every` > 0 additionally chunks each
     phase to at most that many outer iterations per device call (the
@@ -101,30 +100,6 @@ def solve(
     `schur` in {"auto", "dense", "pairs"} picks the S-assembly encoding
     (see ProblemArrays.from_problem)."""
     cfg = config or SolverConfig.for_dtype(dtype or problem.pts.dtype)
-    from psba_tpu import constants as _C
-
-    use_dense = schur == "dense" or (
-        schur == "auto"
-        and problem.n_cams * problem.n_pts <= _C.DENSE_SCHUR_MAX_ENTRIES
-    )
-    point_map = None
-    if use_dense:
-        # cluster covisible points into the dense kernels' grid tiles so
-        # the per-(camera, tile) occupancy skip bites (problem.py); the
-        # returned map restores the caller's point order on output
-        problem, point_map = problem.with_tile_point_order()
-    # checkpoint compatibility marker: pts are persisted in the solver's
-    # INTERNAL order (tile-clustered when dense); a checkpoint written
-    # under a different order (schur="pairs" run, or a different
-    # clustering version) would be silently misinterpreted on resume
-    if point_map is None:
-        point_order = "natural"
-    else:
-        import zlib
-
-        point_order = (
-            f"tile-{zlib.crc32(np.ascontiguousarray(point_map)):08x}"
-        )
     pa = ProblemArrays.from_problem(problem, dtype=dtype, schur=schur)
     cams = jnp.asarray(problem.cams, dtype=pa.K.dtype)
     pts = jnp.asarray(problem.pts, dtype=pa.K.dtype)
@@ -143,16 +118,6 @@ def solve(
         restored = ckpt.load_latest(checkpoint_dir)
         if restored is not None:
             r_cams, r_pts, meta = restored
-            saved_order = meta.get("point_order", "natural")
-            if saved_order != point_order:
-                raise ValueError(
-                    f"checkpoint in {checkpoint_dir!r} stores points in "
-                    f"order {saved_order!r} but this run uses "
-                    f"{point_order!r} (schur encoding or tile-clustering "
-                    "version changed since it was written); resuming "
-                    "would silently scramble the point array — delete "
-                    "the checkpoint or rerun with the original settings"
-                )
             cams = jnp.asarray(r_cams, dtype=pa.K.dtype)
             pts = jnp.asarray(r_pts, dtype=pa.K.dtype)
             phase = meta.get("phase", start)
@@ -217,8 +182,7 @@ def solve(
             ckpt.save(
                 checkpoint_dir, state.cams, state.pts, int(state.itno),
                 flag, next_phase or phase,
-                extra={"ex_l2": float(state.ex_l2),
-                       "point_order": point_order},
+                extra={"ex_l2": float(state.ex_l2)},
                 aux=state.aux if mid_phase else None,
             )
         if next_phase is None:
@@ -259,16 +223,15 @@ def solve(
                     else lm_fresh_aux(jnp.float64)
                 )
                 state64 = state64._replace(aux=aux64)
-            lm64 = jax.jit(lm_run, static_argnames=("cfg",))
             while True:
                 with timers.phase("lm64"):
                     if chunk:
                         cap = min(int(state64.itno) + chunk, polish_target)
-                        state64 = lm64(
+                        state64 = lm(
                             pa64, state64, cfg64, iter_cap=jnp.int32(cap)
                         )
                     else:
-                        state64 = lm64(pa64, state64, cfg64)
+                        state64 = lm(pa64, state64, cfg64)
                     flag = int(state64.flag)
                 mid_phase = (
                     chunk > 0
@@ -284,7 +247,6 @@ def solve(
                         extra={
                             "ex_l2": float(state64.ex_l2),
                             "polish_target": polish_target,
-                            "point_order": point_order,
                         },
                         aux=state64.aux if mid_phase else None,
                     )
@@ -296,12 +258,9 @@ def solve(
     wall = time.perf_counter() - t0
 
     final_l2 = float(state.ex_l2)
-    pts_out = np.asarray(state.pts)
-    if point_map is not None:
-        pts_out = pts_out[point_map]
     return SolveResult(
         cams=np.asarray(state.cams),
-        pts=pts_out,
+        pts=np.asarray(state.pts),
         resolved_damping=cfg.damping,
         initial_l2=initial_l2,
         final_l2=final_l2,

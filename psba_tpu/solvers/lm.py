@@ -1,6 +1,6 @@
 """Levenberg–Marquardt solver.
 
-TPU-native re-design of the reference LM loop (PSBA/levmar.cpp:45-256).
+Re-design of the reference LM loop (PSBA/levmar.cpp:45-256).
 The reference interleaves ~15 synchronous kernel launches with host
 readbacks of ex/g/dp every iteration (SURVEY.md §3.2); here the *entire*
 run — outer iteration loop and inner damping-retry loop included — is one
@@ -38,45 +38,22 @@ from psba_tpu.core.hessian import (
 )
 from psba_tpu.core.jacobian import jacobians
 from psba_tpu.core.linalg import spd_solve
-from psba_tpu.core.residual import error_l2, error_l2_diff, residuals
+from psba_tpu.core.residual import error_l2_diff, residuals
 from psba_tpu.core.schur import (
     back_substitute,
     back_substitute_dense,
-    back_substitute_dense3,
-    damp_v_planar,
-    damp_v_planar_marquardt,
-    diag_v_planar,
     inv3x3,
     inv3x3_planar,
-    inv3x3_planar3,
-    max_diag_planar,
     planar_gb,
     reduced_rhs,
     reduced_rhs_dense,
-    reduced_rhs_dense3,
     schur_S,
     schur_S_dense,
-    schur_S_dense3,
     stack_blocks,
     y_blocks,
 )
-from psba_tpu.ops.linearize_dense import linearize_dense_pallas
-from psba_tpu.ops.linearize_pallas import (
-    linearize_pallas,
-    residual_l2_pallas,
-)
-from psba_tpu.ops.residual_dense import gain_dense_pallas
 from psba_tpu.parallel.ctx import NO_MESH, MeshCtx
 from psba_tpu.solvers.types import OptState, ProblemArrays, SolverConfig
-
-
-def use_pallas(cfg: SolverConfig, dtype) -> bool:
-    """Trace-time backend resolution (see SolverConfig.backend)."""
-    if cfg.backend == "pallas":
-        return True
-    if cfg.backend == "xla":
-        return False
-    return jax.default_backend() == "tpu" and dtype == jnp.float32
 
 _NU_OVERFLOW = float(2 ** 31)  # reference: int nu wraps (levmar.cpp:238-243)
 
@@ -159,15 +136,9 @@ def lm_run(
     def outer_cond(s: _Outer):
         return (s.itno < cap) & (s.flag == CC.ITER_CONTINUE)
 
-    pallas = use_pallas(cfg, dtype)
     # Schur encoding is a pytree-structure property of pa (types.py): dense
     # blk_idx stacking when present, covisibility pair list otherwise
-    # (dense measured 10-15x faster everywhere it fits — SCHUR_COMPARE.json)
     dense = pa.blk_idx is not None
-    # fully planar dense path: ZW/V/gb born planar from the dense-grid
-    # kernel (ops.linearize_dense_pallas) — no stack_blocks gather, no
-    # [P, 3, 3] relayouts anywhere in the damping-retry loop
-    dense3 = dense and pallas and pa.obs_du is not None
     if cfg.damping == "auto":
         raise ValueError(
             'cfg.damping="auto" must be resolved before lm_run (it '
@@ -176,58 +147,37 @@ def lm_run(
             "— hybrid.solve / solve_sharded do this automatically"
         )
     marq = cfg.damping == "marquardt"
-    s_prec = (
-        jax.lax.Precision.HIGH if cfg.s_precision == "high"
-        else jax.lax.Precision.HIGHEST
-    )
     # collective for the O(C^2) S assembly (cfg.s_reduce)
     s_psum = ctx.psum_rs if cfg.s_reduce == "scatter" else ctx.psum
 
     def outer_body(s: _Outer):
         P_loc = s.pts.shape[0]
-        if dense3:
-            # ONE dense-grid kernel births everything: ZW/V/gb planar
-            # plus the camera-side U/ga (in-kernel lane partials) — no
-            # observation-stream kernel anywhere in the dense3 iteration
-            ZW0, ZW1, ZW2, Vp, gbp3, _Pp, U, ga = linearize_dense_pallas(
-                pa.K, pa.q0, s.cams, s.pts, pa.obs_du, pa.obs_dv,
-                pa.valid_d, clamp=cfg.clamp_quat, want_u=True,
-                tile_mask=pa.tile_mask,
-            )
-            ZW3 = (ZW0, ZW1, ZW2)
-            gb = gbp3[:, :P_loc].T              # [P, 3] for denominators
-        elif pallas:
-            _ex_k, _l2, U, V, W, ga, gb, _, _ = linearize_pallas(
-                pa.K, pa.q0, s.cams, s.pts, pa.obs, pa.cam_idx, pa.pt_idx,
-                pa.valid, C, P_loc, clamp=cfg.clamp_quat,
-            )
-        else:
+        with jax.named_scope("linearize"):
             A, B = jacobians(
                 pa.K, pa.q0, s.cams, s.pts, pa.cam_idx, pa.pt_idx,
                 clamp=cfg.clamp_quat,
             )
+        with jax.named_scope("assemble"):
             U, V, W, ga, gb = assemble_blocks(
                 A, B, s.ex, pa.cam_idx, pa.pt_idx, C, P_loc,
                 coeff=1.0, valid=pa.valid,
             )
-        U = ctx.psum(U)
-        ga = ctx.psum(ga)
-        if dense and not dense3:
+            U = ctx.psum(U)
+            ga = ctx.psum(ga)
+        if dense:
             # loop-invariant across damping retries: W is fixed per outer
             # iteration, so the gather happens once; every retry below is
             # pure dense matmuls against the planar ZW [6C, 3P]
-            ZW = stack_blocks(W, pa.blk_idx)
-            gbp = planar_gb(gb)
+            with jax.named_scope("stack_blocks"):
+                ZW = stack_blocks(W, pa.blk_idx)
+                gbp = planar_gb(gb)
         # first-iteration damping seed: additive = tau * max(diag)
         # (levmar.cpp:113-120); marquardt = plain tau (dimensionless —
         # the diag factors live in the damping itself)
         if marq:
             mu0 = jnp.asarray(cfg.tau, dtype)
         else:
-            md = (
-                max_diag_planar(U, Vp, P_loc) if dense3 else max_diag(U, V)
-            )
-            mu0 = cfg.tau * ctx.pmax(md)
+            mu0 = cfg.tau * ctx.pmax(max_diag(U, V))
         mu = jnp.where(s.first, mu0, s.mu)
         nu = jnp.where(s.first, 2.0, s.nu)
         p_l2 = jnp.where(s.first, 1e3, s.p_l2)
@@ -235,63 +185,46 @@ def lm_run(
         # Marquardt gain-ratio denominator needs the undamped diagonals
         if marq:
             dU = jnp.diagonal(U, axis1=-2, axis2=-1)          # [C, 6]
-            dV = (
-                diag_v_planar(Vp, P_loc) if dense3
-                else jnp.diagonal(V, axis1=-2, axis2=-1)      # [P, 3]
-            )
+            dV = jnp.diagonal(V, axis1=-2, axis2=-1)          # [P, 3]
 
         def inner_body(t: _Inner):
-            if dense3:
-                if marq:
-                    dUe = jnp.where(dU > 0.0, dU, 1.0)
-                    U_d = U + (t.mu * dUe)[..., None] * jnp.eye(
-                        6, dtype=dtype
-                    )
-                    Vp_d = damp_v_planar_marquardt(Vp, t.mu)
-                else:
-                    U_d = U + t.mu * jnp.eye(6, dtype=dtype)
-                    Vp_d = damp_v_planar(Vp, t.mu)
-                Vinv3, vok = inv3x3_planar3(Vp_d)
-                S, ZY3 = schur_S_dense3(
-                    U_d, ZW3, Vinv3, psum=s_psum, prec=s_prec
-                )
-                ea = reduced_rhs_dense3(
-                    ga, gbp3, ZY3, psum=ctx.psum, prec=s_prec
-                )
-            elif dense:
-                _damp = damp_uv_marquardt if marq else damp_uv
-                U_d, V_d = _damp(U, V, t.mu)
-                Vpl, vok = inv3x3_planar(V_d)
-                S, ZY = schur_S_dense(U_d, ZW, Vpl, psum=s_psum)
-                ea = reduced_rhs_dense(ga, gbp, ZY, psum=ctx.psum)
+            _damp = damp_uv_marquardt if marq else damp_uv
+            if dense:
+                with jax.named_scope("vinv"):
+                    U_d, V_d = _damp(U, V, t.mu)
+                    Vpl, vok = inv3x3_planar(V_d)
+                with jax.named_scope("schur_S"):
+                    S, ZY = schur_S_dense(U_d, ZW, Vpl, psum=s_psum)
+                with jax.named_scope("reduced_rhs"):
+                    ea = reduced_rhs_dense(ga, gbp, ZY, psum=ctx.psum)
             else:
-                _damp = damp_uv_marquardt if marq else damp_uv
-                U_d, V_d = _damp(U, V, t.mu)
-                Vinv, vok = inv3x3(V_d)
-                Y = y_blocks(W, Vinv, pa.pt_idx)
-                S = schur_S(
-                    U_d, Y, W, pa.pair_o1, pa.pair_o2, pa.pair_bucket, C,
-                    psum=s_psum,
-                )
-                ea = reduced_rhs(
-                    ga, gb, Y, pa.cam_idx, pa.pt_idx, C, psum=ctx.psum
-                )
-            dpa_flat, ok = spd_solve(S, ea.reshape(-1))
+                with jax.named_scope("vinv"):
+                    U_d, V_d = _damp(U, V, t.mu)
+                    Vinv, vok = inv3x3(V_d)
+                with jax.named_scope("schur_S"):
+                    Y = y_blocks(W, Vinv, pa.pt_idx)
+                    S = schur_S(
+                        U_d, Y, W, pa.pair_o1, pa.pair_o2, pa.pair_bucket,
+                        C, psum=s_psum,
+                    )
+                with jax.named_scope("reduced_rhs"):
+                    ea = reduced_rhs(
+                        ga, gb, Y, pa.cam_idx, pa.pt_idx, C, psum=ctx.psum
+                    )
+            with jax.named_scope("cholesky"):
+                dpa_flat, ok = spd_solve(S, ea.reshape(-1))
             # a singular V block poisons S/eb/dpb; treat it exactly like a
             # Cholesky failure -> mu*nu escalation (levmar.cpp:227-244)
             ok = ok & ctx.pand(vok)
             dpa = dpa_flat.reshape(C, 6)
-            if dense3:
-                dpb3 = back_substitute_dense3(
-                    gbp3, ZW3, Vinv3, dpa, prec=s_prec
-                )
-                dpb = dpb3[:, :t.pts.shape[0]].T
-            elif dense:
-                _ebp, dpb = back_substitute_dense(gbp, ZW, Vpl, dpa)
-            else:
-                _eb, dpb = back_substitute(
-                    gb, W, Vinv, dpa, pa.cam_idx, pa.pt_idx, t.pts.shape[0]
-                )
+            with jax.named_scope("back_substitute"):
+                if dense:
+                    _ebp, dpb = back_substitute_dense(gbp, ZW, Vpl, dpa)
+                else:
+                    _eb, dpb = back_substitute(
+                        gb, W, Vinv, dpa, pa.cam_idx, pa.pt_idx,
+                        t.pts.shape[0],
+                    )
             dp_l2 = jnp.sum(dpa * dpa) + ctx.psum(jnp.sum(dpb * dpb))
 
             # stop tests (levmar.cpp:169-179), only meaningful on a valid dp
@@ -303,45 +236,27 @@ def lm_run(
             # trial step (levmar.cpp:185-195)
             new_cams = t.cams + dpa
             new_pts = t.pts + dpb
-            if dense3:
-                # gain computed in one dense-grid pass over (old, new)
-                # params (ops.residual_dense) — no [O,2] residual is
-                # materialized and t.ex is never read on this path
-                gain_k, _new_l2 = gain_dense_pallas(
-                    pa.K, pa.q0, t.cams, t.pts, new_cams, new_pts,
-                    pa.obs_du, pa.obs_dv, pa.valid_d, clamp=cfg.clamp_quat,
-                    tile_mask=pa.tile_mask,
-                )
-            elif pallas:
-                new_ex, new_l2 = residual_l2_pallas(
-                    pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx,
-                    pa.pt_idx, pa.valid, clamp=cfg.clamp_quat,
-                )
-                new_l2 = ctx.psum(new_l2)
-            else:
+            with jax.named_scope("gain"):
                 new_ex = residuals(
                     pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx,
                     pa.pt_idx, clamp=cfg.clamp_quat,
                 )
-                new_l2 = ctx.psum(error_l2(new_ex, valid=pa.valid))
-            # gain-ratio denominator dp^T (mu D dp + g) (levmar.cpp:271-280
-            # with D = I; D = diag(H) under Marquardt damping)
-            if marq:
-                Dc = jnp.where(dU > 0.0, dU, 1.0)
-                Dp = jnp.where(dV > 0.0, dV, 1.0)
-                denom = jnp.sum(dpa * (t.mu * Dc * dpa + ga)) + ctx.psum(
-                    jnp.sum(dpb * (t.mu * Dp * dpb + gb))
-                )
-            else:
-                denom = jnp.sum(dpa * (t.mu * dpa + ga)) + ctx.psum(
-                    jnp.sum(dpb * (t.mu * dpb + gb))
-                )
-            # gain-ratio numerator in factored form (error_l2_diff /
-            # gain_dense_pallas): exact in infinite precision, conditioned
-            # for f32 near convergence
-            if dense3:
-                gain = ctx.psum(gain_k)
-            else:
+                # gain-ratio denominator dp^T (mu D dp + g)
+                # (levmar.cpp:271-280 with D = I; D = diag(H) under
+                # Marquardt damping)
+                if marq:
+                    Dc = jnp.where(dU > 0.0, dU, 1.0)
+                    Dp = jnp.where(dV > 0.0, dV, 1.0)
+                    denom = jnp.sum(dpa * (t.mu * Dc * dpa + ga)) + ctx.psum(
+                        jnp.sum(dpb * (t.mu * Dp * dpb + gb))
+                    )
+                else:
+                    denom = jnp.sum(dpa * (t.mu * dpa + ga)) + ctx.psum(
+                        jnp.sum(dpb * (t.mu * dpb + gb))
+                    )
+                # gain-ratio numerator in factored form (error_l2_diff):
+                # exact in infinite precision, conditioned for f32 near
+                # convergence
                 gain = ctx.psum(error_l2_diff(t.ex, new_ex, valid=pa.valid))
             rho = gain / denom
             rho = jnp.where(ok, rho, -1.0)
@@ -379,10 +294,7 @@ def lm_run(
             return _Inner(
                 cams=jnp.where(accept, new_cams, t.cams),
                 pts=jnp.where(accept, new_pts, t.pts),
-                # dense3 never materializes residual vectors: ex rides the
-                # carry untouched (OptState.init re-derives it at every
-                # solve/polish boundary; no consumer reads it mid-phase)
-                ex=t.ex if dense3 else jnp.where(accept, new_ex, t.ex),
+                ex=jnp.where(accept, new_ex, t.ex),
                 ex_l2=jnp.where(accept, t.ex_l2 - gain, t.ex_l2),
                 mu=jnp.where(
                     stopped, t.mu,

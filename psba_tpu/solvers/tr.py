@@ -1,6 +1,6 @@
 """Dogleg trust-region solver.
 
-TPU-native re-design of the reference TR loop (PSBA/trust_region.cpp:49-288)
+Re-design of the reference TR loop (PSBA/trust_region.cpp:49-288)
 as one jitted computation (same device-resident-scalar design as
 psba_tpu.solvers.lm). Parity map:
 
@@ -39,32 +39,17 @@ from psba_tpu.core.residual import error_l2, error_l2_diff, residuals
 from psba_tpu.core.schur import (
     back_substitute,
     back_substitute_dense,
-    back_substitute_dense3,
-    damp_v_planar,
     inv3x3,
     inv3x3_planar,
-    inv3x3_planar3,
     planar_gb,
     reduced_rhs,
     reduced_rhs_dense,
-    reduced_rhs_dense3,
     schur_S,
     schur_S_dense,
-    schur_S_dense3,
     stack_blocks,
     y_blocks,
 )
-from psba_tpu.ops.linearize_dense import linearize_dense_pallas
-from psba_tpu.ops.linearize_pallas import (
-    linearize_pallas,
-    residual_l2_pallas,
-)
-from psba_tpu.ops.residual_dense import (
-    gain_dense_pallas,
-    jgram_dense_pallas,
-)
 from psba_tpu.parallel.ctx import NO_MESH, MeshCtx
-from psba_tpu.solvers.lm import use_pallas
 from psba_tpu.solvers.types import OptState, ProblemArrays, SolverConfig
 
 
@@ -198,75 +183,31 @@ def tr_run(
             (s.flag == CC.ITER_PASS) | (s.flag == CC.ITER_CONTINUE)
         )
 
-    pallas = use_pallas(cfg, dtype)
     # Schur encoding dispatch as in psba_tpu.solvers.lm: dense blk_idx
     # stacking when present in pa, covisibility pair list otherwise
     dense = pa.blk_idx is not None
-    # fully planar dense path (see solvers/lm.py dense3)
-    dense3 = dense and pallas and pa.obs_du is not None
     # collective for the O(C^2) S assembly (cfg.s_reduce)
     s_psum = ctx.psum_rs if cfg.s_reduce == "scatter" else ctx.psum
-    s_prec = (
-        jax.lax.Precision.HIGH if cfg.s_precision == "high"
-        else jax.lax.Precision.HIGHEST
-    )
 
     def outer_body(s: _Outer):
         # B-blocks carry coeff 2, g = -(2 J^T ex) (trust_region.cpp:122-137)
-        if dense3:
-            # U/ga from the obs-stream kernel (one-hot MXU reduction):
-            # TR consumes g directly as the Cauchy direction and in the
-            # model prediction, and measured on 7camsvarK-f32 the dense
-            # lane-partial ga rounding parks TR ~6% above the optimum
-            # the obs-stream reduction reaches (LM, whose ga only feeds
-            # the solve RHS and the gain denominator, keeps the fused
-            # dense U/ga — see solvers/lm.py). No jacobian stream: the
-            # curvature scalars come from the dense J-gram kernel
-            # (ops.residual_dense.jgram_dense_pallas), trial gains from
-            # the dense gain kernel.
-            _ex_k, _l2, U1, _, _, ga1, _, _, _ = linearize_pallas(
-                pa.K, pa.q0, s.cams, s.pts, pa.obs, pa.cam_idx, pa.pt_idx,
-                pa.valid, C, P, clamp=cfg.clamp_quat,
-                want_point=False, want_w=False,
-            )
-            ZW0, ZW1, ZW2, Vp1, gbp1, _Pp = linearize_dense_pallas(
-                pa.K, pa.q0, s.cams, s.pts, pa.obs_du, pa.obs_dv,
-                pa.valid_d, clamp=cfg.clamp_quat,
-                tile_mask=pa.tile_mask,
-            )
-            # every Schur-system block carries the TR coeff 2 (B = 2 J^T J,
-            # trust_region.cpp:122-137): U, V, W, and g alike — the kernel
-            # emits coeff-free blocks, so ZW is scaled here too
-            U = 2.0 * U1
-            Vp = 2.0 * Vp1
-            ZW3 = (2.0 * ZW0, 2.0 * ZW1, 2.0 * ZW2)
-            ga2 = 2.0 * ga1
-            gb2 = (2.0 * gbp1)[:, :P].T
-        elif pallas:
-            _ex_k, _l2, U1, V1, W1, ga1, gb1, A, B = linearize_pallas(
-                pa.K, pa.q0, s.cams, s.pts, pa.obs, pa.cam_idx, pa.pt_idx,
-                pa.valid, C, P, clamp=cfg.clamp_quat, want_jac=True,
-            )
-            U, V, W = 2.0 * U1, 2.0 * V1, 2.0 * W1
-            ga2, gb2 = 2.0 * ga1, 2.0 * gb1
-        else:
+        with jax.named_scope("linearize"):
             A, B = jacobians(
                 pa.K, pa.q0, s.cams, s.pts, pa.cam_idx, pa.pt_idx,
                 clamp=cfg.clamp_quat,
             )
+        with jax.named_scope("assemble"):
             U, V, W, ga2, gb2 = assemble_blocks(
                 A, B, s.ex, pa.cam_idx, pa.pt_idx, C, P, coeff=2.0,
                 valid=pa.valid,
             )
-        U = ctx.psum(U)
-        g_c, g_p = -ctx.psum(ga2), -gb2
-        if dense3:
-            # planar point gradient for the retry loop (scaled like g_p)
-            g_pp3 = -2.0 * gbp1
-        elif dense:
+            U = ctx.psum(U)
+            g_c, g_p = -ctx.psum(ga2), -gb2
+        if dense:
             # loop-invariant across the lambda-escalation retries below
-            ZW = stack_blocks(W, pa.blk_idx)
-            g_pp = planar_gb(g_p)
+            with jax.named_scope("stack_blocks"):
+                ZW = stack_blocks(W, pa.blk_idx)
+                g_pp = planar_gb(g_p)
 
         # Cauchy step P_U = -(g^T g / g^T B g) g (trust_region.cpp:125-130),
         # computed on g normalized by its max |entry|: on badly scaled BAL
@@ -278,16 +219,7 @@ def tr_run(
         ))
         gm = jnp.where(gm > 0.0, gm, 1.0)
         gh_c, gh_p = g_c / gm, g_p / gm
-        if dense3:
-            # g^T B g = 2 |J gh|^2 via the dense J-gram kernel — same
-            # sum-of-squares conditioning as the reference's explicit
-            # J g materialization (see ops.residual_dense)
-            gtBg_n = 2.0 * ctx.psum(jgram_dense_pallas(
-                pa.K, pa.q0, s.cams, s.pts, pa.valid_d,
-                gh_c[None], (g_pp3 / gm)[None],
-                clamp=cfg.clamp_quat, tile_mask=pa.tile_mask,
-            )[0, 0])
-        else:
+        with jax.named_scope("jgram"):
             Jg = jmultiply(A, B, gh_c, gh_p, pa.cam_idx, pa.pt_idx)
             gtBg_n = 2.0 * ctx.psum(jnp.sum(Jg * Jg))  # = g^T B g / gm^2
         gtg_n = _dot(gh_c, gh_p, gh_c, gh_p)          # = g^T g / gm^2
@@ -299,47 +231,41 @@ def tr_run(
             return (~t.solved) & (~t.failed_out) & (t.tries < 64)
 
         def solve_body(t: _SolveCarry):
-            if dense3:
-                U_d = U + t.lam * jnp.eye(6, dtype=dtype)
-                Vp_d = damp_v_planar(Vp, t.lam)
-                Vinv3, vok = inv3x3_planar3(Vp_d)
-                S, ZY3 = schur_S_dense3(
-                    U_d, ZW3, Vinv3, psum=s_psum, prec=s_prec
-                )
-                ea = reduced_rhs_dense3(
-                    g_c, g_pp3, ZY3, psum=ctx.psum, prec=s_prec
-                )
-            elif dense:
-                U_d, V_d = damp_uv(U, V, t.lam)
-                Vpl, vok = inv3x3_planar(V_d)
-                S, ZY = schur_S_dense(U_d, ZW, Vpl, psum=s_psum)
-                ea = reduced_rhs_dense(g_c, g_pp, ZY, psum=ctx.psum)
+            if dense:
+                with jax.named_scope("vinv"):
+                    U_d, V_d = damp_uv(U, V, t.lam)
+                    Vpl, vok = inv3x3_planar(V_d)
+                with jax.named_scope("schur_S"):
+                    S, ZY = schur_S_dense(U_d, ZW, Vpl, psum=s_psum)
+                with jax.named_scope("reduced_rhs"):
+                    ea = reduced_rhs_dense(g_c, g_pp, ZY, psum=ctx.psum)
             else:
-                U_d, V_d = damp_uv(U, V, t.lam)
-                Vinv, vok = inv3x3(V_d)
-                Y = y_blocks(W, Vinv, pa.pt_idx)
-                S = schur_S(
-                    U_d, Y, W, pa.pair_o1, pa.pair_o2, pa.pair_bucket, C,
-                    psum=s_psum,
-                )
-                ea = reduced_rhs(
-                    g_c, g_p, Y, pa.cam_idx, pa.pt_idx, C, psum=ctx.psum
-                )
-            dpa_flat, ok = spd_solve(S, ea.reshape(-1))
+                with jax.named_scope("vinv"):
+                    U_d, V_d = damp_uv(U, V, t.lam)
+                    Vinv, vok = inv3x3(V_d)
+                with jax.named_scope("schur_S"):
+                    Y = y_blocks(W, Vinv, pa.pt_idx)
+                    S = schur_S(
+                        U_d, Y, W, pa.pair_o1, pa.pair_o2, pa.pair_bucket,
+                        C, psum=s_psum,
+                    )
+                with jax.named_scope("reduced_rhs"):
+                    ea = reduced_rhs(
+                        g_c, g_p, Y, pa.cam_idx, pa.pt_idx, C, psum=ctx.psum
+                    )
+            with jax.named_scope("cholesky"):
+                dpa_flat, ok = spd_solve(S, ea.reshape(-1))
             # singular V blocks poison S; escalate lambda exactly like a
             # Cholesky failure (compute_PB :341-371)
             ok = ok & ctx.pand(vok)
             dpa = dpa_flat.reshape(C, 6)
-            if dense3:
-                dpb = back_substitute_dense3(
-                    g_pp3, ZW3, Vinv3, dpa, prec=s_prec
-                )[:, :P].T
-            elif dense:
-                _ebp, dpb = back_substitute_dense(g_pp, ZW, Vpl, dpa)
-            else:
-                _eb, dpb = back_substitute(
-                    g_p, W, Vinv, dpa, pa.cam_idx, pa.pt_idx, P
-                )
+            with jax.named_scope("back_substitute"):
+                if dense:
+                    _ebp, dpb = back_substitute_dense(g_pp, ZW, Vpl, dpa)
+                else:
+                    _eb, dpb = back_substitute(
+                        g_p, W, Vinv, dpa, pa.cam_idx, pa.pt_idx, P
+                    )
             pb_c_new, pb_p_new = -dpa, -dpb
 
             # failure handling (compute_PB :341-371 + caller :143-158)
@@ -381,18 +307,7 @@ def tr_run(
         solve_aborted = t.failed_out | (~t.solved)
 
         # curvature scalars (trust_region.cpp:166-176)
-        if dense3:
-            pu_pp3 = scal * g_pp3
-            Pp = g_pp3.shape[1]         # static planar width
-            pb_pp3 = jnp.pad(pb_p.T, ((0, 0), (0, Pp - P)))
-            Gm = 2.0 * ctx.psum(jgram_dense_pallas(
-                pa.K, pa.q0, s.cams, s.pts, pa.valid_d,
-                jnp.stack([pu_c, pb_c], axis=0),
-                jnp.stack([pu_pp3, pb_pp3], axis=0),
-                clamp=cfg.clamp_quat, tile_mask=pa.tile_mask,
-            ))
-            pUtBpU, pUtBpB, pBtBpB = Gm[0, 0], Gm[0, 1], Gm[1, 1]
-        else:
+        with jax.named_scope("jgram"):
             Jpu = jmultiply(A, B, pu_c, pu_p, pa.cam_idx, pa.pt_idx)
             Jpb = jmultiply(A, B, pb_c, pb_p, pa.cam_idx, pa.pt_idx)
             pUtBpU = 2.0 * ctx.psum(jnp.sum(Jpu * Jpu))
@@ -412,26 +327,7 @@ def tr_run(
             )
             new_cams = m.cams + p_c
             new_pts = m.pts + p_p
-            if dense3:
-                # one dense-grid pass over (old, new) params yields the
-                # factored gain and the trial error together — no [O,2]
-                # residual materialization, m.ex never read on this path
-                gain_k, act_k = gain_dense_pallas(
-                    pa.K, pa.q0, m.cams, m.pts, new_cams, new_pts,
-                    pa.obs_du, pa.obs_dv, pa.valid_d, clamp=cfg.clamp_quat,
-                    tile_mask=pa.tile_mask,
-                )
-                gain, act = ctx.psum(gain_k), ctx.psum(act_k)
-            elif pallas:
-                new_ex, act = residual_l2_pallas(
-                    pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx,
-                    pa.pt_idx, pa.valid, clamp=cfg.clamp_quat,
-                )
-                act = ctx.psum(act)
-                gain = ctx.psum(
-                    error_l2_diff(m.ex, new_ex, valid=pa.valid)
-                )
-            else:
+            with jax.named_scope("gain"):
                 new_ex = residuals(
                     pa.K, pa.q0, new_cams, new_pts, pa.obs, pa.cam_idx,
                     pa.pt_idx, clamp=cfg.clamp_quat,
@@ -448,15 +344,7 @@ def tr_run(
             # cancels catastrophically in f32 when p nearly minimizes the
             # model — measured on 7camsvarK-f32 it mis-predicts rho near
             # convergence and parks TR ~6% above the optimum
-            if dense3:
-                Pp_ = g_pp3.shape[1]
-                p_pp3 = jnp.pad(p_p.T, ((0, 0), (0, Pp_ - P)))
-                ptBp = 2.0 * ctx.psum(jgram_dense_pallas(
-                    pa.K, pa.q0, m.cams, m.pts, pa.valid_d,
-                    p_c[None], p_pp3[None], clamp=cfg.clamp_quat,
-                    tile_mask=pa.tile_mask,
-                )[0, 0])
-            else:
+            with jax.named_scope("jgram"):
                 Jp = jmultiply(A, B, p_c, p_p, pa.cam_idx, pa.pt_idx)
                 ptBp = 2.0 * ctx.psum(jnp.sum(Jp * Jp))
             pred = m.ex_l2 + _dot(g_c, g_p, p_c, p_p) + 0.5 * ptBp
@@ -520,8 +408,7 @@ def tr_run(
             return _ModelCarry(
                 cams=jnp.where(accept, new_cams, m.cams),
                 pts=jnp.where(accept, new_pts, m.pts),
-                # dense3: ex rides the carry untouched (see solvers/lm.py)
-                ex=m.ex if dense3 else jnp.where(accept, new_ex, m.ex),
+                ex=jnp.where(accept, new_ex, m.ex),
                 ex_l2=jnp.where(track, m.ex_l2 - gain, m.ex_l2),
                 dk=dk_next,
                 lam=lam_next,

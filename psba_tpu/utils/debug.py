@@ -2,7 +2,7 @@
 
 The reference's debugging surface is 12 compile-time dump toggles plus
 NaN tripwires in its buffer printers (psba.h:23-34, cl_psba.cpp:400-403).
-The TPU equivalents:
+The equivalents here:
 
   - enable_nan_checks(): turns on jax's NaN debugging (jax_debug_nans) —
     any NaN produced inside jitted code raises with a traceback to the

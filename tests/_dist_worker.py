@@ -1,17 +1,17 @@
 """Multi-process distributed-solve worker (launched by test_distributed).
 
 Usage: python tests/_dist_worker.py PROCESS_ID NUM_PROCESSES PORT OUT_JSON \
-           [SCHUR] [S_REDUCE] [N_CAMS] [N_PTS] [BACKEND] [DTYPE]
+           [SCHUR] [S_REDUCE] [N_CAMS] [N_PTS] [DTYPE]
 
 SCHUR in {auto, dense, pairs} picks the S-assembly encoding; S_REDUCE in
 {psum, scatter} picks the collective for the S off-diagonal sum
 (reduce_scatter + all_gather when "scatter") — both exercised across
-REAL process boundaries here. BACKEND "pallas" + DTYPE "f32" exercises the
-fully planar dense3 path (interpret-mode kernels on the CPU mesh).
+REAL process boundaries here. DTYPE in {f64, f32} is the working
+precision.
 
 Each process owns 2 virtual CPU devices; jax.distributed coordinates the
-processes so the mesh spans NUM_PROCESSES * 2 devices, exactly the shape of
-a multi-host TPU pod slice (ICI within a process, DCN across)."""
+processes so the mesh spans NUM_PROCESSES * 2 devices, the shape of a
+multi-host run (several devices per process, several processes)."""
 
 import json
 import os
@@ -24,8 +24,7 @@ schur = sys.argv[5] if len(sys.argv) > 5 else "auto"
 s_reduce = sys.argv[6] if len(sys.argv) > 6 else "psum"
 n_cams = int(sys.argv[7]) if len(sys.argv) > 7 else 6
 n_pts = int(sys.argv[8]) if len(sys.argv) > 8 else 150
-backend = sys.argv[9] if len(sys.argv) > 9 else "auto"
-dtype_s = sys.argv[10] if len(sys.argv) > 10 else "f64"
+dtype_s = sys.argv[9] if len(sys.argv) > 9 else "f64"
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (
@@ -53,7 +52,7 @@ import jax.numpy as jnp  # noqa: E402
 
 dtype = jnp.float32 if dtype_s == "f32" else jnp.float64
 prob = synthetic_problem(n_cams=n_cams, n_pts=n_pts, seed=3)
-cfg = SolverConfig.for_dtype(dtype, s_reduce=s_reduce, backend=backend)
+cfg = SolverConfig.for_dtype(dtype, s_reduce=s_reduce)
 res = solve_distributed(
     prob, cfg, mesh=global_mesh(), schur=schur,
     dtype=None if dtype_s == "f64" else dtype,

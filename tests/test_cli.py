@@ -22,9 +22,10 @@ def run_cli(*args, timeout=420):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    # persistent compile cache: the first subprocess pays the CPU
-    # compiles, the rest of the file reuses them
-    env["JAX_COMPILATION_CACHE_DIR"] = "/tmp/jax_cache_cpu"
+    # persistent compile cache (the CLI keeps it in <repo>/.jax_cache):
+    # the first subprocess pays the CPU compiles, the rest of the file
+    # reuses them
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
     env["JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES"] = "-1"
     env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "0.5"
     return subprocess.run(
@@ -80,3 +81,19 @@ def test_cli_reference_report_format():
     assert any(l.startswith("initial error: ") for l in lines)
     assert any(l.startswith("final error: ") for l in lines)
     assert any(l.startswith("total iteration: ") for l in lines)
+
+
+def test_cli_generated_text_pair(tmp_path):
+    """A generated BAL-shaped problem written as the reference's text pair
+    reads back through --cams/--pts and solves."""
+    from psba_tpu.io import bal_shaped_problem
+    from psba_tpu.io.bal import write_sba_text
+
+    prob = bal_shaped_problem(5, 80, seed=2)
+    cams, pts = str(tmp_path / "cams.txt"), str(tmp_path / "pts.txt")
+    write_sba_text(prob, cams, pts)
+    res = run_cli("--cams", cams, "--pts", pts, "--max-iters", "6", "--json")
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["final_l2"] < out["initial_l2"]
+    assert out["iterations"] <= 6

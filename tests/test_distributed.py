@@ -46,7 +46,7 @@ def test_solve_distributed_single_process(prob_synth):
 @pytest.mark.parametrize("schur,s_reduce", [
     ("auto", "psum"),        # dense encoding, all-reduce S
     ("pairs", "scatter"),    # pair-list encoding, reduce_scatter S —
-    # both cross REAL process boundaries (VERDICT r2 weak #6)
+    # both cross REAL process boundaries
 ])
 def test_solve_distributed_two_processes(tmp_path, schur, s_reduce):
     """Spawn 2 coordinated processes; each owns half the mesh devices."""
@@ -86,13 +86,12 @@ def test_solve_distributed_two_processes(tmp_path, schur, s_reduce):
     )
 
 
-def test_two_process_dense3_at_scale(tmp_path):
-    """BAL-scale 2-process run on the fully planar dense3 encoding
-    (VERDICT r3 weak #6: the prior 2-proc coverage was 150 points):
-    10k points / ~40k observations, f32 + Pallas interpret kernels,
-    2 shards per process, dense obs tables crossing process boundaries.
-    Both processes must agree exactly; the result must match the
-    single-process 4-device run of the identical mesh shape."""
+def test_two_process_dense_at_scale(tmp_path):
+    """2-process run at 10k points / ~40k observations on the dense
+    Schur encoding in f32, 2 shards per process, the dense blk_idx
+    tables crossing process boundaries. Both processes must agree
+    exactly; the result must match the single-process 4-device run of
+    the identical mesh shape."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -105,7 +104,7 @@ def test_two_process_dense3_at_scale(tmp_path):
         subprocess.Popen(
             [sys.executable, os.path.join(REPO, "tests", "_dist_worker.py"),
              str(i), "2", str(port), outs[i], "dense", "psum",
-             str(N_CAMS), str(N_PTS), "pallas", "f32"],
+             str(N_CAMS), str(N_PTS), "f32"],
             env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
         )
         for i in range(2)
@@ -127,7 +126,7 @@ def test_two_process_dense3_at_scale(tmp_path):
 
     prob = synthetic_problem(n_cams=N_CAMS, n_pts=N_PTS, seed=3)
     ref = solve_sharded(
-        prob, SolverConfig.for_dtype(jnp.float32, backend="pallas"),
+        prob, SolverConfig.for_dtype(jnp.float32),
         n_devices=4, schur="dense", dtype=jnp.float32,
     )
     np.testing.assert_allclose(

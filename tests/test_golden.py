@@ -57,9 +57,9 @@ def test_golden_f64(name):
             res.final_error, g["final_error"], rtol=1e-6
         )
     # 5cams is gauge-singular (see the F32_GAP note): even in f64 its
-    # iteration count wobbles with summation order (e.g. the tile-major
-    # point reordering moved it 32 -> 36 while the final error stayed at
-    # rtol 1e-6 parity); the error gate above is the real parity check
+    # iteration count wobbles with summation order (a point reordering
+    # once moved it 32 -> 36 while the final error stayed at rtol 1e-6
+    # parity); the error gate above is the real parity check
     assert abs(res.iterations - g["iterations"]) <= (
         8 if name == "5cams" else 2
     )
@@ -85,12 +85,10 @@ F32_GATED = [n for n in SMALL if n != "3cams"] + ["trafalgar21"]
 # numerically indefinite, so TR's GMW bootstrap lambda = |sum E|/n
 # (trust_region.cpp:341-366) is dominated by f32 rounding in S, and
 # any summation-order change lands the run at a different local stop.
-# Measured spread of code-equivalent variants so far: 1.1x-2.9x the f64
-# optimum across the round-3 planar Schur relayouts, 3.3x after the
-# round-4 Pallas Cholesky on TPU, and 3.9x on CPU after switching the
-# 3x3 block scaling to exact power-of-two (the exp2(-floor(log2)) path
-# it replaced was off by ulps — the cleaner arithmetic simply lands this
-# chaotic trajectory elsewhere). The gate here is a sanity bound on that
+# Measured spread of code-equivalent variants so far: 1.1x-3.9x the f64
+# optimum across Schur layout and Cholesky changes and the switch of the
+# 3x3 block scaling to exact power-of-two (the cleaner arithmetic simply
+# lands this chaotic trajectory elsewhere). The gate here is a sanity bound on that
 # measured spread; the STRICT gate for 5cams-class numerics is
 # test_golden_f32_polish_recovers, which requires the polished run to
 # hit the f64 optimum at rtol 1e-5.
@@ -130,25 +128,6 @@ def test_golden_f32_polish_recovers(name):
         dtype=jnp.float32, polish_iters=300 if name == "5cams" else 30,
     )
     np.testing.assert_allclose(res.final_error, g["final_error"], rtol=1e-5)
-
-
-@requires_data
-@pytest.mark.parametrize("name", ["7camsvarK", "54camsvarKD"])
-def test_golden_f32_pallas_backend(name):
-    """The forced-pallas path (dense-grid planar kernels, interpret mode
-    on CPU, Mosaic on TPU) must land within 10% of the f64 optimum — CI
-    coverage for the kernels the CPU `auto` backend never selects. This
-    gate catches scale/layout bugs in the dense3 LM *and* TR paths (the
-    hybrid switches into TR on these datasets)."""
-    import jax.numpy as jnp
-
-    g = GOLDEN[name]
-    res = solve(
-        datasets.load(name),
-        SolverConfig.for_dtype(jnp.float32, backend="pallas"),
-        dtype=jnp.float32,
-    )
-    assert res.final_error <= 1.10 * g["final_error"]
 
 
 def test_f32_tight_gate_non_gauge_singular():

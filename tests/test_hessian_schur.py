@@ -6,6 +6,7 @@ the dense normal equations J^T J built from the same Jacobians."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from psba_tpu.core.hessian import assemble_blocks, damp_uv, max_diag
 from psba_tpu.core.jacobian import jacobians
@@ -257,7 +258,7 @@ def test_gmw_perturbation():
 
 
 def test_gmw_blocked_matches_unblocked():
-    """Blocked right-looking GMW (panel + MXU trailing update) must
+    """Blocked right-looking GMW (panel + matmul trailing update) must
     reproduce the column recurrence's E exactly, and A + diag(E) must be
     PSD — including non-multiple-of-block sizes (identity-tail padding)."""
     import numpy as np
@@ -276,3 +277,26 @@ def test_gmw_blocked_matches_unblocked():
         np.testing.assert_allclose(E2, E1, rtol=1e-12, atol=1e-12)
         w = np.linalg.eigvalsh(np.asarray(A) + np.diag(E2))
         assert w.min() > -1e-8
+
+
+@pytest.mark.parametrize("indices_are_sorted", [False, True])
+def test_indexed_sum_modes(indices_are_sorted):
+    """indexed_sum equals np.add.at, with unsorted and sorted indices;
+    out-of-range indices (padding markers) contribute nothing."""
+    from psba_tpu.ops.reduce import indexed_sum
+
+    rng = np.random.default_rng(1)
+    data = rng.standard_normal((100, 7))
+    idx = rng.integers(0, 13, 100)
+    idx[0] = 13                      # padding marker
+    if indices_are_sorted:
+        order = np.argsort(idx, kind="stable")
+        data, idx = data[order], idx[order]
+    want = np.zeros((14, 7))
+    np.add.at(want, idx, data)
+    got = indexed_sum(
+        jnp.asarray(data), jnp.asarray(idx, jnp.int32), 13,
+        indices_are_sorted=indices_are_sorted,
+    )
+    np.testing.assert_allclose(np.asarray(got), want[:13], rtol=1e-12,
+                               atol=1e-12)

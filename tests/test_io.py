@@ -38,20 +38,20 @@ def test_read_cams_7col_requires_shared_K():
 
 
 @requires_data
-def test_load_problem_7cams(prob7):
-    assert prob7.n_cams == 7
-    assert prob7.n_pts == 465
-    assert prob7.n_obs > prob7.n_pts  # every point seen >= 1 time
-    prob7.validate()
+def test_load_problem_7cams(prob7_ref):
+    assert prob7_ref.n_cams == 7
+    assert prob7_ref.n_pts == 465
+    assert prob7_ref.n_obs > prob7_ref.n_pts  # every point seen >= 1 time
+    prob7_ref.validate()
     # obs sorted by point; indices consistent with vmask
-    m = visibility_mask(prob7)
-    assert m.sum() == prob7.n_obs
+    m = visibility_mask(prob7_ref)
+    assert m.sum() == prob7_ref.n_obs
 
 
 @requires_data
-def test_load_problem_54cams(prob54):
-    assert prob54.n_cams == 54
-    assert prob54.n_pts == 5207
+def test_load_problem_54cams(prob54_ref):
+    assert prob54_ref.n_cams == 54
+    assert prob54_ref.n_pts == 5207
 
 
 @requires_data
@@ -111,9 +111,9 @@ def test_bal_roundtrip_mini_fixture(tmp_path):
     documented BAL layout, consistent geometry + 0.5 px noise): convert
     -> solve -> noise-floor RMSE, and the write_sba_text round trip
     must reproduce the identical problem. This is the path real BAL
-    points data takes the day it is available (VERDICT r4 missing #2 —
-    final-RMSE parity on Venice/Rome/Dubrovnik awaits the data itself,
-    datasets.py synthesizes points meanwhile)."""
+    points data takes the day it is available (final-RMSE parity on
+    Venice/Rome/Dubrovnik awaits the data itself, datasets.py
+    synthesizes points meanwhile)."""
     import os
 
     import numpy as np

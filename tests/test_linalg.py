@@ -1,71 +1,64 @@
-"""SPD solve paths: XLA factor-and-solve vs the single-kernel Pallas
-factor+solve (interpret mode on CPU; Mosaic-compiled on TPU)."""
+"""SPD factor-and-solve of the reduced camera system (core.linalg)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from psba_tpu.core.linalg import spd_solve_xla
-from psba_tpu.ops.cholesky_pallas import spd_solve_pallas
+from psba_tpu.core.linalg import spd_solve
 
 
-@pytest.mark.parametrize("n", [18, 126, 130])
-def test_spd_solve_pallas_matches(n):
-    rng = np.random.default_rng(n)
+def _random_spd(n, seed):
+    rng = np.random.default_rng(seed)
     A = rng.standard_normal((n, n))
     S = (A @ A.T + n * np.eye(n)).astype(np.float32)
     b = rng.standard_normal(n).astype(np.float32)
-    x_p, ok_p = spd_solve_pallas(jnp.asarray(S), jnp.asarray(b))
-    x_x, ok_x = spd_solve_xla(jnp.asarray(S), jnp.asarray(b))
-    assert bool(ok_p) and bool(ok_x)
-    ref = np.linalg.solve(S.astype(np.float64), b.astype(np.float64))
-    scale = np.max(np.abs(ref))
-    np.testing.assert_allclose(np.asarray(x_p), ref, atol=5e-3 * scale)
-    np.testing.assert_allclose(np.asarray(x_x), ref, atol=5e-3 * scale)
+    return S, b
 
 
-def test_spd_solve_pallas_flags_indefinite():
+def _indefinite():
     S = np.eye(24, dtype=np.float32)
     S[5, 5] = -2.0
-    x, ok = spd_solve_pallas(
-        jnp.asarray(S), jnp.asarray(np.ones(24, np.float32))
-    )
-    assert not bool(ok)
-    assert bool(jnp.all(x == 0.0))  # garbage suppressed on failure
+    return S, np.ones(24, np.float32)
 
 
-def test_spd_solve_pallas_badly_scaled():
+def _badly_scaled():
     """Diagonal scales spanning ~1e12 (the Dubrovnik-88 regime after
-    damping) must still solve: the kernel's rsqrt-based elimination has no
-    det-like product that can overflow f32."""
+    damping)."""
     rng = np.random.default_rng(1)
     n = 30
     d = 10.0 ** rng.uniform(0, 12, n)
     A = rng.standard_normal((n, n)) * 0.01
     S = (np.diag(d) + A @ A.T).astype(np.float32)
     b = (d * rng.standard_normal(n)).astype(np.float32)
-    x, ok = spd_solve_pallas(jnp.asarray(S), jnp.asarray(b))
+    return S, b
+
+
+@pytest.mark.parametrize("case", [
+    "spd18", "spd126", "spd130", "indefinite", "badly_scaled", "n1024",
+])
+def test_spd_solve(case):
+    """f32 solves at block-multiple and ragged sizes (n = 6C and not), a
+    failure flag on an indefinite matrix with the garbage zeroed, a badly
+    scaled system, and n = 1024 (6C for C ~ 170 cameras)."""
+    if case == "indefinite":
+        S, b = _indefinite()
+        x, ok = spd_solve(jnp.asarray(S), jnp.asarray(b))
+        assert not bool(ok)
+        assert bool(jnp.all(x == 0.0))  # garbage suppressed on failure
+        return
+    if case == "badly_scaled":
+        S, b = _badly_scaled()
+        tol = 1e-3
+    elif case == "n1024":
+        S, b = _random_spd(1024, 7)
+        tol = 5e-3
+    else:
+        n = int(case[3:])
+        S, b = _random_spd(n, n)
+        tol = 5e-3
+    x, ok = spd_solve(jnp.asarray(S), jnp.asarray(b))
     assert bool(ok)
     ref = np.linalg.solve(S.astype(np.float64), b.astype(np.float64))
     np.testing.assert_allclose(
-        np.asarray(x), ref, atol=1e-3 * np.max(np.abs(ref))
+        np.asarray(x), ref, atol=tol * np.max(np.abs(ref))
     )
-
-
-def test_pallas_cap_shape():
-    """The MAX_N=1024 cap shape must stay solvable (interpret mode here;
-    the same shape is verified Mosaic-compiled on TPU v5e — VMEM budget
-    3*Np^2 f32 = 12 MB, see the module docstring's accounting). Guards
-    the cap against a kernel change that silently raises the footprint
-    past what BAL camera counts like Ladybug-1723-subsets need."""
-    from psba_tpu.ops.cholesky_pallas import MAX_N
-
-    n = MAX_N
-    rng = np.random.default_rng(7)
-    A = rng.standard_normal((n, n)).astype(np.float32)
-    S = A @ A.T + n * np.eye(n, dtype=np.float32)
-    b = rng.standard_normal(n).astype(np.float32)
-    x, ok = spd_solve_pallas(jnp.asarray(S), jnp.asarray(b))
-    assert bool(ok)
-    resid = np.linalg.norm(S @ np.asarray(x, np.float64) - b)
-    assert resid / np.linalg.norm(b) < 1e-2

@@ -11,7 +11,6 @@ from psba_tpu.core.jacobian import jacobians, jmultiply
 from psba_tpu.core.residual import error_l2, residuals
 from psba_tpu.models.pinhole import project_quat
 from tests import oracle
-from tests.conftest import requires_data
 
 
 def _perturb(prob, seed=0, rot=1e-3, trans=1e-2, pt=1e-2):
@@ -24,7 +23,6 @@ def _perturb(prob, seed=0, rot=1e-3, trans=1e-2, pt=1e-2):
     return cams, pts
 
 
-@requires_data
 def test_residuals_match_oracle(prob7):
     cams, pts = _perturb(prob7)
     got = np.asarray(
@@ -76,7 +74,6 @@ def test_jacobian_vs_autodiff(prob_synth):
     np.testing.assert_allclose(B, B_ad, rtol=1e-9, atol=1e-9)
 
 
-@requires_data
 def test_jacobian_vs_fd_oracle(prob7):
     """Finite-difference oracle on a subset of observations."""
     cams, pts = _perturb(prob7, seed=7)

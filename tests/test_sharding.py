@@ -115,3 +115,31 @@ def test_sharded_lm_repeat_matches_single_run(prob_synth):
     assert int(itno) == 3 * n
     np.testing.assert_allclose(float(acc), 3.0 * float(ref.ex_l2),
                                rtol=1e-12)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_damping_probe_chunked_matches_solve(prob_synth, monkeypatch, mixed):
+    """The sharded entry points resolve damping="auto" from diag(J^T J)
+    summed over observation chunks; the decision must be solve()'s, in
+    f32 and f64, whatever the chunk size."""
+    import jax.numpy as jnp
+
+    from psba_tpu.parallel import shard
+    from psba_tpu.solvers.types import ProblemArrays, resolve_damping
+    from tests.test_solvers import _mixed_scale_problem
+
+    prob = _mixed_scale_problem() if mixed else prob_synth
+    monkeypatch.setattr(shard, "_PROBE_MAX_OBS", 97)  # ragged last chunk
+    assert prob.n_obs > 2 * 97 and prob.n_obs % 97
+    for dt in (jnp.float32, jnp.float64):
+        cfg = SolverConfig.for_dtype(dt)
+        pa = ProblemArrays.from_problem(prob, dtype=dt)
+        want = resolve_damping(cfg, pa, jnp.asarray(prob.cams, dt),
+                               jnp.asarray(prob.pts, dt))
+        got = shard._resolve_damping_host(cfg, prob, dt)
+        assert got == want
+    assert got.damping == "additive"  # f64 represents both problems
+    if mixed:
+        f32 = shard._resolve_damping_host(
+            SolverConfig.for_dtype(jnp.float32), prob, jnp.float32)
+        assert f32.damping == "marquardt"

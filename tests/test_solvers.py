@@ -44,26 +44,26 @@ def test_schur_encodings_agree(prob_synth):
 
 
 @requires_data
-def test_lm_7cams(prob7):
-    res = solve(prob7, SolverConfig(lm_switch_count=1000))
+def test_lm_7cams(prob7_ref):
+    res = solve(prob7_ref, SolverConfig(lm_switch_count=1000))
     # known optimum of the sba demo 7-cam problem: ~0.675 mean squared
     # pixel error => RMS ~0.8217 px
-    assert abs(rms_px(res, prob7.n_obs) - 0.8218) < 0.01
+    assert abs(rms_px(res, prob7_ref.n_obs) - 0.8218) < 0.01
     assert res.iterations <= 50
 
 
 @requires_data
-def test_hybrid_7cams(prob7):
-    res = solve(prob7)
-    assert abs(rms_px(res, prob7.n_obs) - 0.8218) < 0.01
+def test_hybrid_7cams(prob7_ref):
+    res = solve(prob7_ref)
+    assert abs(rms_px(res, prob7_ref.n_obs) - 0.8218) < 0.01
     # hybrid switched LM -> TR (5 consecutive good iterations)
     assert res.phases[0][0] == "lm" and res.phases[0][2] == CC.ITER_TURN_TO_TR
 
 
 @requires_data
-def test_hybrid_54cams(prob54):
-    res = solve(prob54)
-    assert rms_px(res, prob54.n_obs) < 0.45
+def test_hybrid_54cams(prob54_ref):
+    res = solve(prob54_ref)
+    assert rms_px(res, prob54_ref.n_obs) < 0.45
     assert res.final_l2 < 0.25 * res.initial_l2
 
 
@@ -83,7 +83,7 @@ def test_hybrid_trafalgar():
 
 
 def test_f32_path(prob_synth):
-    """The fast-TPU f32 pipeline must still descend to the noise floor."""
+    """The fast f32 pipeline must still descend to the noise floor."""
     import jax.numpy as jnp
 
     res = solve(prob_synth, dtype=jnp.float32)
@@ -206,7 +206,7 @@ def test_auto_damping_resolution(prob7):
 @requires_data
 def test_default_config_converges_on_mixed_scale_f32():
     """The DEFAULT config must make real progress on a BAL-scaled f32
-    problem (VERDICT r4 weak #4: additive mu = tau*max(diag U) ~ 1e20
+    problem (additive mu = tau*max(diag U) ~ 1e20
     used to drive the first step under the dp-small stop, so the run
     'converged' at its starting point unless the user knew to pass
     --damping marquardt).

@@ -1,5 +1,5 @@
 """Branch-level tests of the TR dogleg step selection and the in-loop GMW
-lambda bootstrap (VERDICT r2 items 5).
+lambda bootstrap.
 
 `_subspace_step` implements compute_p_2 (PSBA/trust_region.cpp:520-595):
 minimize the quadratic model over span{P_U, P_B}; if the minimizer leaves

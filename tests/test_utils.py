@@ -123,34 +123,3 @@ def test_phase_timers_in_solve(prob_synth):
     res = solve(prob_synth)
     assert "lm" in res.phase_report
     assert "phase timing:" in res.phase_report
-
-
-def test_roofline_summarize_rejects_invalid_measurement():
-    """A non-positive iteration time is a broken measurement; summarize
-    must refuse it instead of deriving negative mfu/hbm_frac (the exact
-    failure that published BENCH_r04's mfu=-1.18)."""
-    import pytest
-
-    from psba_tpu.utils.roofline import summarize
-
-    with pytest.raises(ValueError):
-        summarize(21, 11315, 36455, -0.028)
-    with pytest.raises(ValueError):
-        summarize(21, 11315, 36455, 0.0)
-    out = summarize(21, 11315, 36455, 0.25)
-    assert out["mfu"] > 0 and out["hbm_frac"] > 0 and out["sol_frac"] > 0
-
-
-def test_checkpoint_point_order_mismatch_rejected(prob_synth, tmp_path):
-    """A checkpoint stores pts in the solver's INTERNAL order (tile-
-    clustered on dense runs). Resuming it under a different order would
-    silently scramble the points while still 'converging'; the order
-    marker must reject the mismatch instead."""
-    import pytest
-
-    d = str(tmp_path / "ck")
-    solve(prob_synth, SolverConfig(max_iters=3), schur="pairs",
-          checkpoint_dir=d)
-    with pytest.raises(ValueError, match="order"):
-        solve(prob_synth, SolverConfig(max_iters=6), schur="dense",
-              checkpoint_dir=d)
