@@ -11,15 +11,15 @@ same warm call. Device events are attributed to the solver's named scopes
 back_substitute, gain) through the op_name metadata of the compiled HLO.
 Prints, per dtype, the stage totals, the top device operations and the
 device's idle share over the traced window, each with the card's name and
-power limit; writes the same as JSON under --out. Also times the two
-lowerings of the camera-side block reduction (segment sum and one-hot
-contraction) at the same shape.
+power limit; writes the same as JSON under --out.
 
 XLA runs the GPU program through CUDA graphs (command buffers) by
 default, and a kernel inside one is reported under the graph, not its HLO
 op; the script therefore turns command buffers off (XLA_FLAGS
 --xla_gpu_enable_command_buffer=) and reports the per-iteration wall time
-of that configuration.
+of that configuration. With --graphs it leaves XLA's default on: the wall
+time and idle share are then those of the program users run, and the
+stage split is not meaningful.
 
 Needs a GPU; exits non-zero without one.
 """
@@ -143,47 +143,19 @@ def reduce_trace(trace_dir: str, stage_map: dict,
     }
 
 
-def reduction_bench(n_obs, n_cams, dtype, reps=20):
-    """ms per call of the camera-side [O, 42] -> [C, 42] block sum:
-    segment_sum (scatter-add) and a one-hot contraction at HIGHEST."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    rng = np.random.default_rng(0)
-    data = jnp.asarray(rng.standard_normal((n_obs, 42)), dtype)
-    idx = jnp.asarray(rng.integers(0, n_cams, n_obs), jnp.int32)
-    seg = jax.jit(lambda d, i: jax.ops.segment_sum(d, i, n_cams))
-
-    @jax.jit
-    def onehot(d, i):
-        oh = (i[:, None] == jnp.arange(n_cams)[None, :]).astype(d.dtype)
-        return jax.lax.dot_general(
-            oh, d, (((0,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGHEST,
-        )
-
-    out = {}
-    for name, f in (("segment_sum", seg), ("onehot_matmul", onehot)):
-        f(data, idx).block_until_ready()
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            f(data, idx).block_until_ready()
-            ts.append(time.perf_counter() - t0)
-        out[name + "_ms"] = sorted(ts)[reps // 2] * 1e3
-    return out
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--shape", default="rome93")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default="chiprun_out/trace")
+    ap.add_argument("--graphs", action="store_true",
+                    help="keep XLA's CUDA graphs on (no stage split)")
     args = ap.parse_args(argv)
-    os.environ["XLA_FLAGS"] = (
-        os.environ.get("XLA_FLAGS", "") + " --xla_gpu_enable_command_buffer="
-    )
+    if not args.graphs:
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "")
+            + " --xla_gpu_enable_command_buffer="
+        )
 
     import chip_smoke
 
@@ -241,7 +213,6 @@ def main(argv=None):
             "wall_ms_median": sorted(walls)[len(walls) // 2] * 1e3,
             "wall_ms_per_iter": sorted(walls)[len(walls) // 2] * 1e3 / iters,
             **reduce_trace(tdir, stage_map),
-            "cam_reduction": reduction_bench(prob.n_obs, prob.n_cams, dt),
         }
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, f"summary_{dt.__name__}.json"),

@@ -15,10 +15,11 @@ registry (psba_tpu.datasets), about 5 observations per point:
                L2), analytic Jacobians on a 4096-observation subsample
                against central differences (rtol 2e-5, atol 2e-4, the unit
                test's gate), and the reduced camera matrix S built in f32
-               against the same S built in f64 (relative Frobenius error
-               <= 1e-5: the HIGHEST precision pins keep f32 products out of
-               TF32; the TF32 error of the same product is printed beside
-               it)
+               against the same S built in f64: relative Frobenius error
+               <= 1e-5 on the whole of S, and <= 5e-6 on its off-diagonal
+               camera blocks, the product ZY ZW^T alone, which the HIGHEST
+               precision pins keep out of TF32 (TF32 gives ~4e-5 there on
+               an H100; that reading is printed beside it)
   rome93       f64 hybrid solve, and f32 with POLISH f64 polish iterations;
                the two final RMS agree to rtol 1e-6
   ladybug138   f64 hybrid solve (the widest reduced system, n = 6C = 828)
@@ -57,11 +58,11 @@ SHAPES = {
 }
 SEED = 0
 JAC_SUBSAMPLE = 4096
-# f64 LM iterations after the f32 run. The polish restarts LM damping at
-# tau * max(diag), and on these problems it needs ~15-20 iterations to
-# shed it: on the CPU at 93 cameras x 3000 points the f32+polish RMS sat
-# 1.7e-4 above the f64 optimum after 5, 3.8e-6 after 15, 2.6e-14 after 20
-POLISH = 25
+# f64 LM iterations after the f32 run (the CLI's --polish N)
+POLISH = 5
+# relative Frobenius error of S's off-diagonal camera blocks, f32 against
+# f64: between the H100's readings at HIGHEST (7e-7) and in TF32 (4e-5)
+OFFDIAG_RTOL = 5e-6
 
 
 class SmokeFailure(AssertionError):
@@ -174,11 +175,21 @@ def jacobian_check(prob, n_sub=JAC_SUBSAMPLE, seed=SEED):
             "B_max_abs_err": float(np.max(np.abs(np.asarray(B) - B_fd)))}
 
 
+def offdiag_blocks(S, n_cams):
+    """S [6C, 6C] with its C diagonal 6x6 camera blocks set to zero: what
+    is left is -ZY ZW^T, the product whose precision the pins set."""
+    import numpy as np
+
+    S = np.asarray(S, np.float64).reshape(n_cams, 6, n_cams, 6).copy()
+    S[np.arange(n_cams), :, np.arange(n_cams), :] = 0.0
+    return S
+
+
 def schur_check(prob):
     """S = blockdiag(U) - ZY ZW^T at the LM start (mu = tau * max diag),
-    built in f32 and in f64 on the device; also the f32 S with the
-    off-diagonal product left at default precision (TF32 on NVIDIA
-    GPUs)."""
+    built by core.schur.schur_S_dense in f32 and in f64 on the device;
+    also the f32 S with the off-diagonal product recomputed at default
+    precision (TF32 on NVIDIA GPUs), for comparison."""
     import jax
     import jax.numpy as jnp
 
@@ -205,24 +216,30 @@ def schur_check(prob):
         S, ZY = schur_S_dense(U_d, ZW, Vp)
         hi = jnp.matmul(ZY, ZW.T, precision=jax.lax.Precision.HIGHEST)
         lo = jnp.matmul(ZY, ZW.T, precision=jax.lax.Precision.DEFAULT)
-        return S, S + hi - lo, hi, lo, ok
+        return S, S + hi - lo, ok
 
-    out, S, off = {}, {}, {}
+    out, S = {}, {}
     for dt in (jnp.float64, jnp.float32):
         f = [jnp.asarray(a, dt) for a in
              (prob.K, prob.q0, prob.cams, prob.pts, prob.obs)]
-        S[dt], S_default, off[dt], off_default, ok = build(
+        S[dt], S_default, ok = build(
             *f, jnp.asarray(prob.cam_idx), jnp.asarray(prob.pt_idx),
             jnp.asarray(blk),
         )
         check(bool(ok), f"singular V block in the {dt.__name__} build")
+    C = prob.n_cams
     out["f32_highest_relerr"] = relerr(S[jnp.float32], S[jnp.float64])
     out["f32_default_precision_relerr"] = relerr(S_default, S[jnp.float64])
-    # the off-diagonal product ZY ZW^T alone, where the precision acts
+    # the off-diagonal blocks alone: the U diagonal, exact in both builds,
+    # dilutes the product's error in S as a whole
+    off64 = offdiag_blocks(S[jnp.float64], C)
     out["offdiag_f32_highest_relerr"] = relerr(
-        off[jnp.float32], off[jnp.float64])
+        offdiag_blocks(S[jnp.float32], C), off64)
     out["offdiag_f32_default_precision_relerr"] = relerr(
-        off_default, off[jnp.float64])
+        offdiag_blocks(S_default, C), off64)
+    check(out["offdiag_f32_highest_relerr"] <= OFFDIAG_RTOL,
+          "f32 S off-diagonal relerr "
+          f"{out['offdiag_f32_highest_relerr']:.3e} > {OFFDIAG_RTOL:g}")
     check(out["f32_highest_relerr"] <= 1e-5,
           f"f32 S relerr {out['f32_highest_relerr']:.3e} > 1e-5")
     return out
@@ -341,15 +358,16 @@ def cli_check(prob, ref_res, out_dir):
 def four_phase(prob, n_devices=4):
     """solve_sharded over n_devices against the single-device solve().
 
-    Both must end on the same flag. f64: the full hybrid solve, final L2
-    rtol 1e-8. f32: 10 LM iterations, the error after each of them rtol
-    1e-4. Run to its end, an f32 solve stops once a step gains < 3e-7 of
-    the L2 or moves the parameters < 1e-6, tests that sit at f32
-    roundoff: on these problems it stops 3e-5..1.5e-3 above the optimum
-    (CPU rehearsals at 93 cameras), and a different psum order moves the
-    stop, so the f32 comparison is taken before that endgame. Returns one
-    row per dtype, with the devices the sharded solver state lives on; a
-    failed check raises with the rows in its message."""
+    f64: whole hybrid solves, the same flag, final L2 within rtol 1e-8.
+    f32: the first 10 LM iterations, error after each within rtol 1e-4,
+    and whole hybrid solves, each ending within 1e-2 of the f64 RMS; the
+    whole f32 solves' flags and final L2 gap are reported, not gated.
+    Their endgame runs at f32 roundoff, where the GPU's unordered sums
+    send two solves on different paths: at rome93 on four H100s two runs
+    ended CONTINUE/CONTINUE 7.0e-4 apart and DP_NO_CHANGE/CONTINUE 2.2e-3
+    apart, 4e-4..2e-3 above the f64 RMS. Returns one row per dtype, with
+    the devices the sharded solver state lives on; a failed check raises
+    with the rows in its message."""
     import jax.numpy as jnp
     import numpy as np
 
@@ -375,12 +393,8 @@ def four_phase(prob, n_devices=4):
     rows, failed = [], []
     if len(shard_devices) != n_devices:
         failed.append(f"point shards on {shard_devices}")
-    for dt, cfg in (
-        (jnp.float64, SolverConfig.for_dtype(jnp.float64)),
-        (jnp.float32, SolverConfig.for_dtype(
-            jnp.float32, max_iters=10, lm_switch_count=10**6,
-            record_history=True)),
-    ):
+    for dt in (jnp.float64, jnp.float32):
+        cfg = SolverConfig.for_dtype(dt)
         one = solve(prob, cfg, dtype=dt)
         many = solve_sharded(prob, cfg, n_devices=n_devices, dtype=dt)
         rel = abs(many.final_l2 - one.final_l2) / one.final_l2
@@ -392,28 +406,35 @@ def four_phase(prob, n_devices=4):
             "single_flag": one.flag_name,
             "single_iterations": one.iterations,
             "final_rms_px": rms_px(many.final_l2, prob.n_obs),
+            "single_final_rms_px": rms_px(one.final_l2, prob.n_obs),
             "final_l2_relerr_vs_single": rel,
             "wall_s": many.wall_s, "single_wall_s": one.wall_s,
-            "phases": many.phases,
+            "phases": many.phases, "single_phases": one.phases,
         }
-        if many.flag != one.flag:
-            failed.append(f"{dt.__name__} flags {many.flag_name} "
-                          f"sharded, {one.flag_name} single")
         if dt == jnp.float64:
-            if rel > 1e-8:
+            rms64 = rms_px(one.final_l2, prob.n_obs)
+            if many.flag != one.flag:
+                failed.append(f"f64 flags {many.flag_name} sharded, "
+                              f"{one.flag_name} single")
+            if not rel <= 1e-8:
                 failed.append(f"f64 final L2 relerr {rel:.3e} > 1e-8")
         else:
-            n = min(many.iterations, one.iterations)
-            e1, e4 = one.history[:n, 1], many.history[:n, 1]
-            row["err_history"] = e1.tolist()
-            row["err_history_sharded"] = e4.tolist()
-            row["max_err_relerr_vs_single"] = float(
-                np.max(np.abs(e4 - e1) / e1)) if n else None
-            if n < cfg.max_iters:
-                failed.append(f"f32 stopped after {n} iterations")
-            elif row["max_err_relerr_vs_single"] > 1e-4:
-                failed.append("f32 error history relerr "
-                              f"{row['max_err_relerr_vs_single']:.3e}")
+            for who, res in (("sharded", many), ("single", one)):
+                gap = rms_px(res.final_l2, prob.n_obs) / rms64 - 1.0
+                row[f"{who}_rms_relerr_vs_f64"] = gap
+                if not abs(gap) <= 1e-2:
+                    failed.append(f"f32 {who} RMS {gap:.3e} off the f64 "
+                                  "RMS (> 1e-2)")
+            lm10 = cfg._replace(max_iters=10, lm_switch_count=10**6,
+                                record_history=True)
+            e1 = solve(prob, lm10, dtype=dt).history[:, 1]
+            e4 = solve_sharded(prob, lm10, n_devices=n_devices,
+                               dtype=dt).history[:, 1]
+            err = float(np.max(np.abs(e4 - e1) / e1))
+            row["lm10_max_err_relerr_vs_single"] = err
+            if not err <= 1e-4:
+                failed.append(f"f32 LM error history relerr {err:.3e} "
+                              "> 1e-4")
         rows.append(row)
     if failed:
         raise SmokeFailure("; ".join(failed) + " | rows: "

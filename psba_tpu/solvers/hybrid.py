@@ -205,6 +205,7 @@ def solve(
             cfg64 = SolverConfig.for_dtype(jnp.float64)._replace(
                 max_iters=polish_target,
                 lm_switch_count=10_000,
+                tau=CC.PSBA_POLISH_MU,
             )
             state64 = OptState.init(
                 pa64,

@@ -90,6 +90,22 @@ def test_f32_path(prob_synth):
     assert rms_px(res, prob_synth.n_obs) < 0.7
 
 
+def test_f32_polish5_reaches_f64_optimum():
+    """Five f64 polish iterations after an f32 run reach the f64 optimum:
+    the polish seeds a near-zero damping (constants.PSBA_POLISH_MU). At
+    this shape a polish seeded like a cold start (tau = 1e-3) is still
+    ~4e-6 above the optimum after five."""
+    import jax.numpy as jnp
+
+    from psba_tpu.io import bal_shaped_problem
+
+    prob = bal_shaped_problem(50, 1000, seed=0)
+    ref = rms_px(solve(prob), prob.n_obs)
+    res = solve(prob, dtype=jnp.float32, polish_iters=5)
+    assert res.phases[-1][0] == "lm64"
+    assert abs(rms_px(res, prob.n_obs) - ref) <= 1e-6 * ref
+
+
 def test_tr_recovers_from_singular_v(prob_synth):
     """A point seen by one camera has rank-2 V (= B^T B, B 2x3): at
     lambda=0 the Vinv failure must escalate like a Cholesky failure
